@@ -1,11 +1,11 @@
-"""avx_sort_merge_joins_tpu — a TPU-native vectorized sort-merge-join engine.
+"""avx_sort_merge_joins_tpu — a sort-merge-join engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the ETH
+A from-scratch JAX/XLA re-design of the capabilities of the ETH
 multi-core sort-merge-joins codebase (PVLDB'13 "Multi-Core, Main-Memory
-Joins: Sort vs. Hash Revisited"): sorting networks, k-way multiway merge,
-radix partitioning, and the m-pass / m-way / mpsm parallel sort-merge joins —
-over HBM-resident columnar relations, scaled across TPU pod slices with
-jax.sharding meshes instead of NUMA-pinned threads.
+Joins: Sort vs. Hash Revisited"): the m-pass / m-way / mpsm sort-merge
+joins over device-resident columnar relations, on one card or sharded
+over the cards of a host with jax.sharding meshes instead of
+NUMA-pinned threads.
 """
 
 import importlib

@@ -1,7 +1,7 @@
-"""Micro-benchmark suite — the analog of the reference's bench binaries
-(reference: src/bench/ — bench_sort, bench_merge, bench_multiwaymerge,
-bench_partitioning, tputbench; built by src/Makefile.am:67).
+"""Benchmark harnesses beside the headline ``bench.py`` — the analog of
+the reference's bench binaries (reference: src/bench/, built by
+src/Makefile.am:67).
 
 Run as modules, e.g.:
-    python -m avx_sort_merge_joins_tpu.bench.sortbench 16 multiway
+    python -m avx_sort_merge_joins_tpu.bench.scalebench 4194304 --devices 1,2,4
 """

@@ -7,8 +7,8 @@ src/bench/tputbench.c:902-1018): run the distributed m-way join at
 tput(n) / (n * tput(1)) — the observable for BASELINE's >=75% scaling
 target.  On the CPU-simulated mesh the virtual devices share host cores,
 so wall-clock efficiency is a structural proxy (it exposes exchange and
-padding overheads, not real ICI speedups); on a real multi-chip slice the
-same harness reports true scaling.
+padding overheads, not real interconnect speedups); on a multi-GPU host
+the same harness reports real scaling.
 """
 
 from __future__ import annotations

@@ -1,193 +1,18 @@
-"""m-pass sort-merge join, single chip.
+"""m-pass sort-merge join, single card (reference:
+src/joins/sortmergejoin_multipass.c: radix-partition → in-cache sort →
+log2(#runs) pairwise merge passes → merge join).
 
-The TPU redesign of the reference's m-pass algorithm
-(reference: src/joins/sortmergejoin_multipass.c): radix-partition → in-cache
-sort → multi-pass pairwise merging → merge join.  On one chip the NUMA
-partitioning phase has no analog (there is a single HBM domain), so the
-pipeline is:
-
-  phase "sort"  — Pallas block sort into alternating-direction runs
-                  (= the reference's in-cache AVX sort of partitions),
-  phase "merge" — log2(#runs) pairwise streaming merge passes
-                  (= mpass_fullmultipassmerge_phase's log-halving loop,
-                  sortmergejoin_multipass.c:621-708),
-  phase "join"  — fused zero-write streaming count
-                  (= scalar merge_join, joincommon.c:239-312).
-
-Count joins run KEYS-ONLY (the payloads a tuple-carrying sort would move
-are never consumed by the count phase — m-way and mpsm made the same
-call), with S sorted as NEGATED keys ascending so the fused count kernel
-reads S windows back-to-front with one elementwise negate instead of a
-14-stage flip per tile.  The tag-merge rank-reduction count
-(`mergejoin.merge_join_count`) remains the tested alternative kernel.
+A library sort of the whole side leaves no runs to merge pairwise, so on
+one card m-pass runs the same program as m-way
+(``models.common.sortmergejoin``).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
-import jax.numpy as jnp
-
 from ..types import JoinConfig, JoinResult, Relation
-from ..ops import mergejoin, sort as sort_ops
-from ..utils import cache
 from . import common
-
-# Keys-only block default (r5 sweep, scripts/exp_mpass_block.py, 16M v5e:
-# block 128/256/512 -> 425.4/434.9/449.3 Mt/s).  PLAN r2's (128,128) pin
-# was measured on the superseded PAIR-carrying path; halved per-substage
-# traffic moves the optimum to bigger blocks, as it did for m-way.
-BLOCK_ROWS_MPASS = 512
-
-
-def _pair_levels(n: int, block_rows: int):
-    """Static (nruns, span) schedule of the log2 pairwise merge passes —
-    the reference's halving loop (sortmergejoin_multipass.c:634-656)."""
-    nruns = max(1, sort_ops.cdiv(n, block_rows * sort_ops.LANES))
-    span = block_rows * sort_ops.LANES
-    levels = []
-    stride = block_rows
-    while nruns > 1:
-        levels.append((stride, span, nruns))
-        stride *= 2
-        span *= 2
-        nruns = -(-nruns // 2)
-    return levels
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
-def _block_phase(k, p, n: int, block_rows: int, tile_rows: int, flip: bool):
-    k2, p2 = sort_ops.prepare(k, p, n, block_rows, tile_rows, flip=flip)
-    nblocks = max(1, sort_ops.cdiv(n, block_rows * sort_ops.LANES))
-    sort_rows = nblocks * block_rows
-    ks, ps = sort_ops.sort_blocks(
-        k2[:sort_rows], None if p2 is None else p2[:sort_rows], block_rows,
-        alternating=nblocks > 1, flip=flip)
-    ks = jnp.concatenate([ks, k2[sort_rows:]], axis=0)
-    if p2 is not None:
-        ps = jnp.concatenate([ps, p2[sort_rows:]], axis=0)
-    return ks, ps
-
-
-def _merge_pass_level(ks, ps, n, level, tile_rows, flip):
-    stride, span, nruns = level
-    ks, ps, _ = sort_ops.merge_pass(ks, ps, None, stride, tile_rows,
-                                    flip=flip, uniform_lens=(nruns, n, span))
-    return ks, ps
-
-
-@functools.lru_cache(maxsize=32)
-def _jit_merge_pass_level(n: int, level, tile_rows: int, flip: bool,
-                          env: tuple = ()):
-    """Cached jitted merge pass (a fresh per-call jit closure re-traces on
-    every model invocation — ~seconds of pure trace time per timed rep)."""
-    return jax.jit(functools.partial(
-        _merge_pass_level, n=n, level=level, tile_rows=tile_rows, flip=flip))
-
-
-@functools.lru_cache(maxsize=32)
-def _jit_count(nR: int, nS: int, tile_rows: int, env: tuple = ()):
-    """Fused zero-write count over (R asc, S negated-asc) — the same
-    kernel/layout contract as m-way's count phase (the tag-merge
-    rank-reduction kernel `merge_join_count` remains the tested
-    alternative/oracle path)."""
-    return jax.jit(functools.partial(
-        mergejoin.merge_join_count_fused, nR=nR, nS=nS,
-        tile_rows=tile_rows, s_negated=True))
 
 
 def sortmergejoin_multipass(R: Relation, S: Relation,
-                            config: JoinConfig | None = None,
-                            block_rows: int = BLOCK_ROWS_MPASS,
-                            tile_rows: int = sort_ops.TILE_ROWS_DEFAULT) -> JoinResult:
-    config = config or JoinConfig()
-    nR, nS = R.num_tuples, S.num_tuples
-
-    if config.scalar_merge or config.scalar_sort:
-        # --scalarsort/--scalarmerge kernel swap (main.c:727-728): the XLA
-        # baseline is a monolithic lax.sort, so there is no multipass
-        # structure left to preserve — one sort replaces block sort + the
-        # log-halving passes, exactly as in m-way's scalar rows (the
-        # scalar sweep measures the kernel baseline, not the merge
-        # schedule).  Shares m-way's jitted scalar branches.
-        from . import mway as _mway
-
-        def pipeline(_):
-            return _mway._mway_count_device(
-                R.keys, S.keys, nR, nS, _mway.FANIN_DEFAULT, block_rows,
-                tile_rows, config.scalar_sort, config.scalar_merge)
-
-        stats, timings = common.run_phases({"sortmerge": pipeline})
-        if config.scalar_merge:
-            matches = int(stats)
-        else:
-            matches = _mway._finish_or_widen(stats, R, S)
-        return common.make_result(matches, nR, nS, timings)
-
-    levels_r = _pair_levels(nR, block_rows)
-    levels_s = _pair_levels(nS, block_rows)
-
-    # phase-split dispatches in the reference's record structure (SORT /
-    # MERGE1 / MERGEREST / MJOIN; the partition phase has no single-chip
-    # analog and reports 0) — sortmergejoin_multipass.c:170-271's
-    # barrier-separated cycles
-    _env = cache.prefetch_env_key()
-
-    # Count joins are KEYS-ONLY end to end, like m-way's and mpsm's count
-    # paths (the payloads the old pair path sorted were discarded at the
-    # join phase — pure traffic).  S runs through the multipass
-    # composition as NEGATED keys ascending, so the fused zero-write count
-    # kernel consumes (R asc, S neg-asc) directly (m-way's negated-S
-    # trick, PLAN r3); the multipass STRUCTURE — block sort + log-halving
-    # pairwise passes, sortmergejoin_multipass.c:621-708 — is unchanged.
-    from . import mway as _mway
-
-    def sort_phase(_):
-        rks, _ = _block_phase(R.keys, None, nR, block_rows, tile_rows,
-                              False)
-        sks, _ = _block_phase(jnp.negative(S.keys[:nS]), None, nS,
-                              block_rows, tile_rows, False)
-        return rks, sks
-
-    def merge1_phase(st):
-        rks, sks = st
-        if levels_r:
-            rks, _ = _jit_merge_pass_level(
-                nR, levels_r[0], tile_rows, False, _env)(rks, None)
-        if levels_s:
-            sks, _ = _jit_merge_pass_level(
-                nS, levels_s[0], tile_rows, False, _env)(sks, None)
-        return rks, sks
-
-    def mergerest_phase(st):
-        rks, sks = st
-        for level in levels_r[1:]:
-            rks, _ = _jit_merge_pass_level(
-                nR, level, tile_rows, False, _env)(rks, None)
-        for level in levels_s[1:]:
-            sks, _ = _jit_merge_pass_level(
-                nS, level, tile_rows, False, _env)(sks, None)
-        return rks, sks
-
-    count = _jit_count(nR, nS, _mway.COUNT_TILE_ROWS, _env)
-
-    def join_phase(st):
-        rks, sks = st
-        return count(rks, sks)
-
-    stats, timings = common.run_phases({"sort": sort_phase,
-                                        "merge1": merge1_phase,
-                                        "mergerest": mergerest_phase,
-                                        "mergejoin": join_phase})
-    matches = _mway._finish_or_widen(stats, R, S)
-    result = common.make_result(matches, nR, nS, timings)
-    nt = nR + nS
-    result.bytes_moved = {
-        "sort": 2 * 4 * nt,  # keys-only columns r+w
-        "merge1": 2 * 4 * nt if (levels_r or levels_s) else 0,
-        "mergerest": 2 * 4 * (nR * max(0, len(levels_r) - 1) +
-                              nS * max(0, len(levels_s) - 1)),
-        "mergejoin": 4 * nt,  # zero-write streaming count
-    }
-    return result
+                            config: JoinConfig | None = None) -> JoinResult:
+    return common.sortmergejoin(R, S, config)

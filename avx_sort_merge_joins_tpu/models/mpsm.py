@@ -2,202 +2,24 @@
 joins in main memory multi-core database systems").
 
 The reference registers mpsm but ships only a stub that warns and exits
-(reference: src/joins/sortmergejoin_mpsm.c:38-45); the BASELINE configs
-require a real implementation, so this one follows the paper's structure
-as the reference's experiment scripts exercise it:
+(reference: src/joins/sortmergejoin_mpsm.c:38-45).  The paper's structure:
+R is globally range-partitioned and fully sorted per worker; S is only
+sorted LOCALLY per worker and never repartitioned; each worker joins its
+R range against every worker's sorted S run.
 
-  * R is globally range-partitioned (on TPU: histogram-derived equi-depth
-    splitters so Zipf skew balances; cross-chip form uses the all_to_all
-    exchange) and each worker fully sorts its owned R range.
-  * S is only sorted LOCALLY per worker — never repartitioned (MPSM's
-    defining trade: no S shuffle, at the price of every R range scanning
-    all S runs).
-  * Join: each worker merge-joins its sorted R range against every
-    worker's sorted S run.
-
-Single-chip realization: "workers" degenerate to ``nchunks`` independent
-S chunks; R is sorted once; the join phase runs one tag-merge count of R
-against each sorted S chunk and sums the counts — R is re-read per chunk,
-which is exactly MPSM's scan-all-S-runs cost shape.
+Single-card realization: "workers" degenerate to ``nchunks`` independent S
+runs, each sorted on its own and counted against all of sorted R
+(MPSM's scan-all-S-runs shape).  With ``nchunks=1`` the program is the
+m-way one (``models.common.sortmergejoin``).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
-
 from ..types import JoinConfig, JoinResult, Relation
-from ..ops import mergejoin, multiwaymerge as mw
-from ..utils import cache
 from . import common
-
-NCHUNKS_DEFAULT = 4
-# the tuned m-way sort composition (PLAN round-2 re-sweep: block 512 /
-# tile 256 wins at both 16M and 128M); the count kernel's packed segscan
-# wants its own T=128 window regardless of the sort tile
-BLOCK_ROWS_MPSM = 512
-TILE_ROWS_MPSM = 256
-COUNT_TILE_ROWS = 256  # V2 tile re-sweep: 256 wins (see models/mway.py)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8))
-def _mpsm_sort(rk, sk, nR: int, nS: int, nchunks: int, fanin: int,
-               block_rows: int, tile_rows: int, env: tuple = ()):
-    """Phase 1+2: sort R fully, sort each S chunk locally (S runs are never
-    merged globally — MPSM's defining trade).  S chunks sort NEGATED-
-    ascending so the count kernel reads them back-to-front and negates —
-    one elementwise op instead of the 14-stage flip_flat per tile (the
-    same trick m-way uses, models/mway.py:69-78)."""
-    rks, _ = mw.multiway_sort(rk, None, nR, block_rows, tile_rows, fanin,
-                              return_2d=True)
-    chunk = -(-nS // nchunks)
-    schunks = []
-    for c in range(nchunks):
-        lo = c * chunk
-        ln = min(chunk, nS - lo)
-        if ln <= 0:
-            break
-        sks, _ = mw.multiway_sort(jax.lax.neg(sk[lo:lo + ln]), None, ln,
-                                  block_rows, tile_rows, fanin,
-                                  return_2d=True)
-        schunks.append(sks)
-    return rks, schunks
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
-def _count1(rks, sks_neg, nR: int, ln: int, tile_rows: int,
-            env: tuple = ()):
-    """One R-range × S-run fused count (module-level jit: a per-call
-    closure would re-trace on every invocation — the round-3 probe
-    measured that trace cost at ~2.3 s vs the kernel's 40 ms at 16M)."""
-    return mergejoin.merge_join_count_fused(rks, sks_neg, nR, ln,
-                                            tile_rows, s_negated=True)
-
-
-@functools.partial(jax.jit, static_argnums=(1,))
-def _sort_xla(k, n: int):
-    return jax.lax.sort((k[:n],), num_keys=1)[0]
-
-
-@functools.partial(jax.jit, static_argnums=(1, 2, 3))
-def _pad2d(ks, n: int, block_rows: int, tile_rows: int):
-    """Ascending sorted column → the fused count kernel's padded (rows,
-    128) layout (+inf tail sentinels) — the scalar-sort bridge, same as
-    m-way's sorted2d (models/mway.py:86-92)."""
-    import jax.numpy as jnp
-
-    from ..ops import sort as sort_ops
-    from ..ops.bitonic import KEY_POS_INF, LANES
-
-    rows = sort_ops.padded_rows(n, block_rows, tile_rows)
-    kf = jnp.full((rows * LANES,), KEY_POS_INF, jnp.int32)
-    return kf.at[:n].set(ks[:n]).reshape(rows, LANES)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4))
-def _count1_asc(rk2, sk2, nR: int, ln: int, tile_rows: int):
-    return mergejoin.merge_join_count_fused(rk2, sk2, nR, ln, tile_rows)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3))
-def _count1_xla(rks, sks, nR: int, ln: int):
-    return mergejoin.merge_join_count_xla(rks, sks, nR, ln)
 
 
 def sortmergejoin_mpsm(R: Relation, S: Relation,
                        config: JoinConfig | None = None,
-                       nchunks: int = NCHUNKS_DEFAULT,
-                       fanin: int = 16,
-                       block_rows: int = BLOCK_ROWS_MPSM,
-                       tile_rows: int = TILE_ROWS_MPSM
-                       ) -> JoinResult:
-    config = config or JoinConfig()
-    nR, nS = R.num_tuples, S.num_tuples
-    chunk = -(-nS // nchunks)
-    # jit-cache key only: a changed SMJ_*_PREFETCH flag must force a
-    # fresh trace (the kernels read the env while tracing)
-    _env = cache.prefetch_env_key()
-
-    if config.scalar_merge or config.scalar_sort:
-        # --scalarsort/--scalarmerge kernel swap, PRESERVING mpsm's cost
-        # shape (each S chunk's count re-scans all of sorted R): XLA
-        # sorts replace the Pallas compositions; under --scalarmerge the
-        # per-chunk count is the XLA tag sort, under --scalarsort alone
-        # it stays the fused Pallas kernel (ascending-S mode).  The
-        # reference stubs mpsm entirely, so the scalar foil here is the
-        # engine's own (sortmergejoin_mpsm.c:38-45, main.c:727-728).
-        def sort_phase_scalar(_):
-            rks = _sort_xla(R.keys, nR)
-            schunks = []
-            for c in range(nchunks):
-                lo = c * chunk
-                ln = min(chunk, nS - lo)
-                if ln <= 0:
-                    break
-                schunks.append(_sort_xla(S.keys[lo:lo + ln], ln))
-            return rks, schunks
-
-        def join_phase_scalar(st):
-            rks, schunks = st
-            if config.scalar_merge:
-                return [_count1_xla(rks, sks, nR, int(sks.shape[0]))
-                        for sks in schunks]
-            rk2 = _pad2d(rks, nR, block_rows, tile_rows)
-            return [_count1_asc(rk2,
-                                _pad2d(sks, int(sks.shape[0]), block_rows,
-                                       tile_rows),
-                                nR, int(sks.shape[0]), COUNT_TILE_ROWS)
-                    for sks in schunks]
-
-        stats_list, timings = common.run_phases(
-            {"sort": sort_phase_scalar, "mergejoin": join_phase_scalar})
-        if config.scalar_merge:
-            matches = sum(int(c) for c in stats_list)
-        else:
-            try:
-                matches = sum(mergejoin.finish_count_fused(s)
-                              for s in stats_list)
-            except mergejoin.CountLimbOverflow:
-                import numpy as np
-
-                from ..utils.log import warn
-                warn("count-kernel limb overflow; recounting through the "
-                     "exact wide path")
-                matches = mergejoin.merge_join_count_numpy(
-                    np.asarray(R.keys[:nR]), np.asarray(S.keys[:nS]))
-        return common.make_result(matches, nR, nS, timings)
-
-    def sort_phase(_):
-        return _mpsm_sort(R.keys, S.keys, nR, nS, nchunks, fanin,
-                          block_rows, tile_rows, _env)
-
-    def join_phase(st):
-        rks, schunks = st
-        stats = []
-        for c, sks in enumerate(schunks):
-            ln = min(chunk, nS - c * chunk)
-            stats.append(_count1(rks, sks, nR, ln, COUNT_TILE_ROWS, _env))
-        return stats
-
-    stats_list, timings = common.run_phases({"sort": sort_phase,
-                                             "mergejoin": join_phase})
-    try:
-        matches = sum(mergejoin.finish_count_fused(s) for s in stats_list)
-    except mergejoin.CountLimbOverflow:
-        import numpy as np
-        from ..utils.log import warn
-        warn("count-kernel limb overflow; recounting through the exact "
-             "wide path")
-        matches = mergejoin.merge_join_count_numpy(
-            np.asarray(R.keys[:nR]), np.asarray(S.keys[:nS]))
-    result = common.make_result(matches, nR, nS, timings)
-    levels = len(mw.merge_levels(nR, block_rows, fanin)) + 1
-    levels_s = len(mw.merge_levels(chunk, block_rows, fanin)) + 1
-    nchunks_live = min(nchunks, -(-nS // max(1, chunk)))
-    result.bytes_moved = {
-        "sort": 2 * 4 * (nR * levels + nS * levels_s),
-        # every S chunk join re-reads all of R (the scan-all-runs shape)
-        "mergejoin": 4 * (nR * nchunks_live + nS),
-    }
-    return result
+                       nchunks: int = 1) -> JoinResult:
+    return common.sortmergejoin(R, S, config, nchunks=nchunks)

@@ -1,310 +1,20 @@
-"""m-way sort-merge join, single chip — the flagship algorithm.
-
-The TPU redesign of the reference's m-way join
-(reference: src/joins/sortmergejoin_multiway.c): radix-partition →
+"""m-way sort-merge join, single card — the flagship algorithm
+(reference: src/joins/sortmergejoin_multiway.c: radix-partition →
 in-cache sort → ONE multi-way merge through a cache-resident FIFO tree →
-merge join.  On TPU the phases map to:
+merge join).
 
-  "sort"  — Pallas block sort of VMEM-resident blocks, all ascending
-            (= the in-cache AVX sort of partitions, :388-460),
-  "merge" — log_fanin(#blocks) passes of the VMEM FIFO-tree multiway merge
-            kernel (= avx_multiway_merge over the shared L3 buffer,
-            :463-556); with fanin ≥ #blocks this is ONE pass, which is
-            what makes m-way bandwidth-optimal vs m-pass's log2 passes,
-  "join"  — tag-merge rank-reduction match count (= scalar merge_join,
-            joincommon.c:239-312) through the same 2-way kernel.
-
-The reference's partitioning phase exists to split work across threads and
-bound merge fan-in; on a single chip the block decomposition plays that
-role, so no physical partition pass is needed (zero extra HBM traffic).
+On one card the partition, sort and merge phases collapse into one
+library radix sort of each side, and the merge join becomes the plain
+count of ``ops.mergejoin``; the program is shared with m-pass and mpsm
+(``models.common.sortmergejoin``).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
-import jax.numpy as jnp
-
-from ..types import JoinConfig, JoinResult, Relation, ThreadResult
-from ..ops import materialize, mergejoin, multiwaymerge as mw
-from ..ops import sort as sort_ops
-from ..utils import cache
+from ..types import JoinConfig, JoinResult, Relation
 from . import common
-
-FANIN_DEFAULT = 16
-# sweep-measured best on v5e at 128M (keys-only): 64K-tuple block sort
-# pays ~13% more substages than 32K blocks but removes one whole tree
-# level (12 -> 11 node traversals); 128K blocks give it back.  Merge
-# tiles stay 32K (the (512,128)-row networks spill vregs).
-BLOCK_ROWS_MWAY = 512
-TILE_ROWS_MWAY = 256
-# count-kernel V2 tile re-sweep (v5e, same-session, negated-S + prefetch):
-# 128M 89.4/84.1/85.7 ms and 16M 33.7/31.9 ms for T=128/256/512 — 256 wins
-# at both sizes (the old kernel preferred 128; V2's hierarchical segscan
-# amortizes better over taller tiles)
-COUNT_TILE_ROWS = 256
-
-
-def _mway_count_device(rk, sk, nR: int, nS: int, fanin: int,
-                       block_rows: int, tile_rows: int,
-                       scalar_sort: bool = False,
-                       scalar_merge: bool = False):
-    """Count-only m-way join: keys-only sorts (payloads never influence the
-    match count — the reference's default non-materializing run) + fused
-    zero-write merge-join count.  ``scalar_sort``/``scalar_merge`` swap in
-    the XLA baselines (the reference's --scalarsort/--scalarmerge runs,
-    main.c:727-728)."""
-    fn = _count_device_fn(nR, nS, fanin, block_rows, tile_rows,
-                          scalar_sort, scalar_merge,
-                          cache.prefetch_env_key())
-    return fn(rk, sk)
-
-
-@functools.lru_cache(maxsize=32)
-def _count_device_fn(nR: int, nS: int, fanin: int, block_rows: int,
-                     tile_rows: int, scalar_sort: bool, scalar_merge: bool,
-                     env: tuple):
-    """Jitted pipeline keyed ALSO on the prefetch env snapshot: the kernels
-    read SMJ_*_PREFETCH at trace time, so a changed flag must force a
-    fresh trace instead of silently reusing the other variant."""
-    return jax.jit(functools.partial(
-        _mway_count_impl, nR=nR, nS=nS, fanin=fanin, block_rows=block_rows,
-        tile_rows=tile_rows, scalar_sort=scalar_sort,
-        scalar_merge=scalar_merge))
-
-
-def _mway_count_impl(rk, sk, nR: int, nS: int, fanin: int,
-                     block_rows: int, tile_rows: int,
-                     scalar_sort: bool, scalar_merge: bool):
-    if scalar_merge:
-        rks = jax.lax.sort((rk[:nR],), num_keys=1)[0]
-        sks = jax.lax.sort((sk[:nS],), num_keys=1)[0]
-        return mergejoin.merge_join_count_xla(rks, sks, nR, nS)
-    if scalar_sort:
-        def sorted2d(k, n):
-            from ..ops.bitonic import KEY_POS_INF, LANES
-            ks = jax.lax.sort((k[:n],), num_keys=1)[0]
-            rows = sort_ops.padded_rows(n, block_rows, tile_rows)
-            kf = jnp.full((rows * LANES,), KEY_POS_INF, jnp.int32)
-            return kf.at[:n].set(ks).reshape(rows, LANES)
-
-        rks = sorted2d(rk, nR)
-        sks = sorted2d(sk, nS)
-    else:
-        import os
-
-        if os.environ.get("SMJ_COUNT2", "0") == "1":
-            # round-4 fused-last-level variant: both compositions STOP at
-            # two runs (merge_levels_2runs deletes the final traversal)
-            # and the 4-way-select count kernel absorbs the missing merge
-            levels_r, stride_r, nr_r = mw.merge_levels_2runs(
-                nR, block_rows, fanin)
-            levels_s, stride_s, nr_s = mw.merge_levels_2runs(
-                nS, block_rows, fanin)
-            if nr_r == 2 and nr_s == 2:
-                rks, _ = mw.sort_blocks_phase(rk, None, nR, block_rows,
-                                              tile_rows)
-                for level in levels_r:
-                    rks, _ = mw.merge_level(rks, None, nR, level, tile_rows)
-                sks, _ = mw.sort_blocks_phase(sk, None, nS, block_rows,
-                                              tile_rows)
-                for level in levels_s:
-                    sks, _ = mw.merge_level(sks, None, nS, level, tile_rows)
-                return mergejoin.merge_join_count_fused2(
-                    rks, sks, nR, nS, stride_r, stride_s, COUNT_TILE_ROWS)
-        # S sorts NEGATED-ascending (= descending): the count kernel then
-        # reads S windows from the back and negates — one elementwise op
-        # instead of the 14-stage flip_flat per tile (PLAN round-3)
-        rks, _ = mw.multiway_sort(rk, None, nR, block_rows, tile_rows,
-                                  fanin, return_2d=True)
-        sks, _ = mw.multiway_sort(jax.lax.neg(sk), None, nS, block_rows,
-                                  tile_rows, fanin, return_2d=True)
-        return mergejoin.merge_join_count_fused(rks, sks, nR, nS,
-                                                COUNT_TILE_ROWS,
-                                                s_negated=True)
-    return mergejoin.merge_join_count_fused(rks, sks, nR, nS,
-                                            COUNT_TILE_ROWS)
-
-
-def _mway_materialize_device(rk, sk, sp, nR: int, nS: int, fanin: int,
-                             block_rows: int, tile_rows: int):
-    """Materializing m-way join: sort R keys, sort S tuples, emit matched
-    S tuples (<S-key, S-RID>, joincommon.c:272-284)."""
-    return _materialize_device_fn(nR, nS, fanin, block_rows, tile_rows,
-                                  cache.prefetch_env_key())(rk, sk, sp)
-
-
-@functools.lru_cache(maxsize=32)
-def _materialize_device_fn(nR: int, nS: int, fanin: int, block_rows: int,
-                           tile_rows: int, env: tuple):
-    def impl(rk, sk, sp):
-        rks, _ = mw.multiway_sort(rk, None, nR, block_rows, tile_rows,
-                                  fanin)
-        sks, sps = mw.multiway_sort(sk, sp, nS, block_rows, tile_rows,
-                                    fanin)
-        return materialize.materialize_matches(rks, nR, sks, sps, nS)
-
-    return jax.jit(impl)
-
-
-@functools.lru_cache(maxsize=32)
-def _jit_blocks(n: int, block_rows: int, tile_rows: int, negate: bool,
-                env: tuple = ()):
-    """Cached jitted block-sort phase (a fresh per-call jit closure would
-    re-trace on every model invocation — measured ~2 s/trace at 16M).
-    ``env`` keys the cache on the trace-time SMJ_*_PREFETCH snapshot."""
-    if negate:
-        return jax.jit(lambda k: mw.sort_blocks_phase(
-            jax.lax.neg(k), None, n=n, block_rows=block_rows,
-            tile_rows=tile_rows))
-    return jax.jit(lambda k: mw.sort_blocks_phase(
-        k, None, n=n, block_rows=block_rows, tile_rows=tile_rows))
-
-
-@functools.lru_cache(maxsize=32)
-def _jit_merge_level(n: int, level, tile_rows: int, env: tuple = ()):
-    return jax.jit(functools.partial(
-        mw.merge_level, n=n, level=level, tile_rows=tile_rows))
-
-
-@functools.lru_cache(maxsize=32)
-def _jit_count(nR: int, nS: int, tile_rows: int, s_negated: bool,
-               env: tuple = ()):
-    return jax.jit(functools.partial(
-        mergejoin.merge_join_count_fused, nR=nR, nS=nS,
-        tile_rows=tile_rows, s_negated=s_negated))
-
-
-def _finish_or_widen(stats, R: Relation, S: Relation) -> int:
-    """Combine fused-count limbs; on the (detected) cntR·cntS ≥ 2^29 limb
-    overflow, recount through the exact host oracle — slow but never wrong
-    (the reference's scalar merge_join is exact for all inputs,
-    joincommon.c:260-305)."""
-    import numpy as np
-
-    try:
-        return mergejoin.finish_count_fused(stats)
-    except mergejoin.CountLimbOverflow:
-        from ..utils.log import warn
-        warn("count-kernel limb overflow (hot key on both sides); "
-             "recounting through the exact wide path")
-        return mergejoin.merge_join_count_numpy(
-            np.asarray(R.keys[:R.num_tuples]),
-            np.asarray(S.keys[:S.num_tuples]))
 
 
 def sortmergejoin_multiway(R: Relation, S: Relation,
-                           config: JoinConfig | None = None,
-                           fanin: int = FANIN_DEFAULT,
-                           block_rows: int = BLOCK_ROWS_MWAY,
-                           tile_rows: int = TILE_ROWS_MWAY
-                           ) -> JoinResult:
-    config = config or JoinConfig()
-    nR, nS = R.num_tuples, S.num_tuples
-
-    if config.mwaybufsize_bytes:
-        # the -m merge-buffer knob (reference MWAY_MERGE_BUFFER_SIZE, an
-        # L3 budget — here the VMEM FIFO budget): solve for the largest
-        # power-of-two tile that fits fanin-1 ring nodes of
-        # (FIFO_TILES+1) tiles each
-        per_tile = (fanin - 1) * (mw.FIFO_TILES + 1) * 128 * 4
-        tr = 128
-        while tr * 2 * per_tile <= config.mwaybufsize_bytes and tr < 1024:
-            tr *= 2
-        tile_rows = tr
-        block_rows = max(block_rows, tile_rows)
-
-    if config.materialize:
-        import numpy as np
-
-        def pipeline(_):
-            return _mway_materialize_device(R.keys, S.keys, S.payloads,
-                                            nR, nS, fanin, block_rows,
-                                            tile_rows)
-
-        (ok, op, om, n_matched), timings = common.run_phases(
-            {"sortmerge": pipeline})
-        nm = int(n_matched)
-        matches = int(np.asarray(om[:nm], dtype=np.int64).sum())
-        if matches != nm:
-            # non-pk R: physically replicate matched S tuples per match
-            # pair (joincommon.c:266-289 nested duplicate loops)
-            cap_out = max(8, matches)
-            ek, ep, _ = jax.jit(materialize.expand_matches,
-                                static_argnums=(4,))(ok, op, om, nm, cap_out)
-            rel = materialize.materialized_relation(ek, ep, matches)
-        else:
-            rel = materialize.materialized_relation(ok, op, nm)
-        result = common.make_result(matches, nR, nS, timings)
-        result.resultlist = [ThreadResult(
-            nresults=matches, results=rel, shard_id=0)]
-        return result
-
-    if config.scalar_merge or config.scalar_sort:
-        def pipeline(_):
-            return _mway_count_device(R.keys, S.keys, nR, nS, fanin,
-                                      block_rows, tile_rows,
-                                      config.scalar_sort,
-                                      config.scalar_merge)
-
-        stats, timings = common.run_phases({"sortmerge": pipeline})
-        if config.scalar_merge:
-            matches = int(stats)
-        else:
-            matches = _finish_or_widen(stats, R, S)
-        return common.make_result(matches, nR, nS, timings)
-
-    # phase-split run in the reference's record structure (PART SORT
-    # MERGE1 MERGEREST MJOIN, joincommon.c:175-196 /
-    # tput-scalability.sh:28); each phase is its own device dispatch so
-    # the timings are honest at the cost of one extra sync each.  The
-    # partition phase has no single-chip analog (the block decomposition
-    # plays its role at zero HBM cost) and reports 0.
-    _env = cache.prefetch_env_key()
-    blocks_r = _jit_blocks(nR, block_rows, tile_rows, False, _env)
-    blocks_s = _jit_blocks(nS, block_rows, tile_rows, True, _env)
-    levels_r = mw.merge_levels(nR, block_rows, fanin)
-    levels_s = mw.merge_levels(nS, block_rows, fanin)
-    count = _jit_count(nR, nS, COUNT_TILE_ROWS, True, _env)
-
-    def sort_phase(_):
-        rks, _ = blocks_r(R.keys)
-        sks, _ = blocks_s(S.keys)
-        return rks, sks
-
-    def merge1_phase(pair):
-        rks, sks = pair
-        if levels_r:
-            rks, _ = _jit_merge_level(nR, levels_r[0], tile_rows, _env)(rks, None)
-        if levels_s:
-            sks, _ = _jit_merge_level(nS, levels_s[0], tile_rows, _env)(sks, None)
-        return rks, sks
-
-    def mergerest_phase(pair):
-        rks, sks = pair
-        for level in levels_r[1:]:
-            rks, _ = _jit_merge_level(nR, level, tile_rows, _env)(rks, None)
-        for level in levels_s[1:]:
-            sks, _ = _jit_merge_level(nS, level, tile_rows, _env)(sks, None)
-        return rks, sks
-
-    def join_phase(sorted_pair):
-        return count(*sorted_pair)
-
-    stats, timings = common.run_phases({"sort": sort_phase,
-                                        "merge1": merge1_phase,
-                                        "mergerest": mergerest_phase,
-                                        "mergejoin": join_phase})
-    matches = _finish_or_widen(stats, R, S)
-    result = common.make_result(matches, nR, nS, timings)
-    # r+w bytes per phase for the roofline report (keys-only = 4 B/tuple)
-    nt = nR + nS
-    result.bytes_moved = {
-        "sort": 2 * 4 * nt,
-        "merge1": 2 * 4 * nt if (levels_r or levels_s) else 0,
-        "mergerest": 2 * 4 * (nR * max(0, len(levels_r) - 1) +
-                              nS * max(0, len(levels_s) - 1)),
-        "mergejoin": 4 * nt,  # zero-write streaming count
-    }
-    return result
+                           config: JoinConfig | None = None) -> JoinResult:
+    return common.sortmergejoin(R, S, config)

@@ -11,22 +11,20 @@ ship in the snapshot — so output-file comparison against the binary is
 impossible; count parity (tests/test_reference_parity.py) is the strongest
 available evidence and this module follows the documented semantics.
 
-TPU realization: per S element compute cntR(key) (how many R rows share its
+Realization: per S element compute cntR(key) (how many R rows share its
 key) with a searchsorted rank difference over the sorted R keys, then
-compact matched S tuples to the front with one stable grouping sort — the
-scatter-free TPU idiom (see ops/partition.py).  Duplicate-R replication
-(cntR > 1) is carried as a per-tuple multiplicity column and physically
-expanded by :func:`expand_matches` when cntR > 1 occurs (non-pk R
-relations) so output rows match the reference's one-tuple-per-match-pair
-semantics exactly.
+compact matched S tuples to the front, in S order, with a prefix sum and
+one scatter.  Duplicate-R replication (cntR > 1) is carried as a
+per-tuple multiplicity column and physically expanded by
+:func:`expand_matches` when cntR > 1 occurs (non-pk R relations) so output
+rows match the reference's one-tuple-per-match-pair semantics exactly.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
-from ..types import Relation
+from ..types import KEY_SENTINEL, Relation
 
 
 def materialize_matches(rk_sorted, nR: int, sk_sorted, sp_sorted, nS: int):
@@ -45,10 +43,11 @@ def materialize_matches(rk_sorted, nR: int, sk_sorted, sp_sorted, nS: int):
     hi = jnp.searchsorted(rk, sk, side="right")
     mult = (hi - lo).astype(jnp.int32)
     matched = mult > 0
-    # stable compaction: group by (unmatched?) keeping S order
-    tag = jnp.where(matched, 0, 1).astype(jnp.int32)
-    idx = jnp.arange(nS, dtype=jnp.int32)
-    _, _, ok, op, om = jax.lax.sort((tag, idx, sk, sp, mult), num_keys=2)
+    dest = jnp.cumsum(matched.astype(jnp.int32)) - 1
+    dest = jnp.where(matched, dest, nS)  # unmatched rows are dropped
+    ok = jnp.full((nS,), KEY_SENTINEL, jnp.int32).at[dest].set(sk, mode="drop")
+    op = jnp.zeros((nS,), jnp.int32).at[dest].set(sp, mode="drop")
+    om = jnp.zeros((nS,), jnp.int32).at[dest].set(mult, mode="drop")
     n_matched = jnp.sum(matched.astype(jnp.int32))
     return ok, op, om, n_matched
 
@@ -58,17 +57,15 @@ def expand_matches(ok, op, om, n_matched, cap_out: int):
     one output tuple per match PAIR, the reference's nested duplicate
     loops (reference: src/joins/joincommon.c:266-289).
 
-    Scatter-free TPU idiom: exclusive offsets from a cumsum of the
-    multiplicities, then every output slot j gathers its source row via
-    ``searchsorted(offsets, j)`` — O(N log N) compares, no data-dependent
-    shapes.  ``cap_out`` is the static output capacity; returns
+    Inclusive offsets from a cumsum of the multiplicities, then every
+    output slot j gathers its source row via ``searchsorted(offsets, j)``
+    — no data-dependent shapes.  ``cap_out`` is the static output
+    capacity; returns
     ``(ekeys, epayloads, total)`` with pads (KEY_SENTINEL, 0) past
     ``total``; total > cap_out means the caller's capacity was too small
     (detect and retry — never silently truncated, outputs past cap are
     simply not representable so callers must check).
     """
-    from ..types import KEY_SENTINEL
-
     n = ok.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
     mult = jnp.where(idx < n_matched, om, 0)

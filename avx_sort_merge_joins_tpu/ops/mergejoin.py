@@ -1,1101 +1,67 @@
-"""Merge-join over sorted relations — the TPU analog of the reference's
-scalar merge_join (reference: src/joins/joincommon.c:239-312), whose
-semantics are: matches = sum over keys k of cntR(k) * cntS(k), with
-duplicate-aware nested advancement.
+"""Merge-join match count over sorted relations — the plain analog of the
+reference's scalar merge_join (reference: src/joins/joincommon.c:239-312),
+whose result is ``sum over keys k of cntR(k) * cntS(k)``.
 
-A two-pointer scan is hostile to TPU, and gathers/searchsorted are slow, so
-we count via a **rank-reduction identity** over tag-merges:
+Every S tuple contributes cntR(its key), so the count needs R sorted and
+one lookup per S tuple; S is sorted too so that neighbouring lookups walk
+the same part of R.  :func:`count_sorted` does ONE binary search per S
+tuple (its lower bound in R) and reads cntR from a run-length table of R
+built by one reverse ``cummin`` scan.  (Two binary searches, lower and
+upper bound, took 1.9x as long on an H100: see PERF.md.)
 
-  Let M  = merge of R and S keys where ties order R before S,
-      M' = merge where ties order S before R.
-  For an R element with R-rank r at merged position m (in M) and m' (in M'):
-      m  = r + |{s in S : key_s <  key_r}|   (R-first ties)
-      m' = r + |{s in S : key_s <= key_r}|   (R-last ties)
-  so its match count cntS(key_r) = m' - m, and summing over R elements:
+The count is exact for every input: per-tuple counts are < 2^31 (they are
+bounded by |R|), and their sum is taken in int64 with x64 enabled for the
+reduction alone, so totals past 2^31 (hot keys on both sides) need no
+host recount.
 
-      matches = sum_{p} p * [M'[p] from R]  -  sum_{p} p * [M[p] from R]
-
-  — two merges of (key, source-flag) pairs plus position-weighted mask
-  reductions.  No gathers, no scatters, no data-dependent scans; the merges
-  reuse the streaming bitonic merge kernel.
-
-Position sums overflow int32, so the reduction returns per-tile
-(count, local position sum) pairs that are combined in int64 off-device
-(or in an exact float path for in-jit use when |R|+|S| < 2^24 tiles).
+Contract of the sorted inputs: ``rks`` is ascending over its WHOLE length,
+so padding must sort last (KEY_SENTINEL = INT32_MAX, which no live key may
+equal); only the first ``n_s`` entries of ``sks`` are live.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from . import sort as sort_ops
-from .bitonic import KEY_NEG_INF, KEY_POS_INF, LANES
 
-
-def _tag_merge(rk, sk_desc, nR: int, nS: int, tile_rows: int, r_flag: int, s_flag: int):
-    """Merge R keys (ascending) with S keys (descending layout) where the
-    source flag rides in the payload slot and breaks ties.  Returns merged
-    (keys, flags) as a flat 2D array of ceil((nR+nS)/T)*T elements."""
-    kf, pf, stride = sort_ops.two_run_layout(
-        rk, sk_desc, nR, nS, tile_rows, rounded_stride=False,
-        pa=jnp.int32(r_flag), pb=jnp.int32(s_flag))
-    ok, of, _ = sort_ops.merge_pass(kf, pf, [nR, nS], stride, tile_rows)
-    return ok, of
-
-
-def _position_stats(flags2d, total: int, r_flag_value: int, tile_rows: int):
-    """Per-tile (count of R-flag positions, sum of local positions) over the
-    first ceil(total/T)*T merged elements."""
-    T = tile_rows * LANES
-    n_tiles = sort_ops.cdiv(total, T)
-    f = flags2d.reshape(-1)[: n_tiles * T].reshape(n_tiles, T)
-    local = jnp.arange(T, dtype=jnp.int32)[None, :]
-    glob_ok = (jnp.arange(n_tiles, dtype=jnp.int32)[:, None] * T + local) < total
-    mask = (f == r_flag_value) & glob_ok
-    counts = jnp.sum(mask.astype(jnp.int32), axis=1)
-    sums = jnp.sum(jnp.where(mask, local, 0), axis=1)
-    return counts, sums
-
-
-def _combine_host(counts, sums, tile_rows: int) -> int:
-    T = tile_rows * LANES
-    c = np.asarray(counts, dtype=np.int64)
-    s = np.asarray(sums, dtype=np.int64)
-    t = np.arange(c.shape[0], dtype=np.int64)
-    return int(np.sum(s + c * t * T))
-
-
-def merge_join_count(
-    rk_sorted,
-    sk_sorted_desc,
-    nR: int,
-    nS: int,
-    tile_rows: int = sort_ops.TILE_ROWS_DEFAULT,
-):
-    """Count equi-join matches between R (keys ascending) and S (keys in
-    descending layout, as produced by sort(..., descending=True)).
-
-    Returns per-tile device stats (countsA, sumsA, countsB, sumsB); combine
-    with :func:`finish_count` (host, exact int64).
-    """
-    total = nR + nS
-    # M: R before S on ties  -> flag order (R=0, S=1)
-    mk, mf = _tag_merge(rk_sorted, sk_sorted_desc, nR, nS, tile_rows, 0, 1)
-    ca, sa = _position_stats(mf, total, 0, tile_rows)
-    # M': S before R on ties -> flag order (S=0, R=1)
-    mk2, mf2 = _tag_merge(rk_sorted, sk_sorted_desc, nR, nS, tile_rows, 1, 0)
-    cb, sb = _position_stats(mf2, total, 1, tile_rows)
-    return ca, sa, cb, sb
-
-
-def finish_count(stats, tile_rows: int = sort_ops.TILE_ROWS_DEFAULT) -> int:
-    ca, sa, cb, sb = stats
-    return _combine_host(cb, sb, tile_rows) - _combine_host(ca, sa, tile_rows)
-
-
-def _segmented_counts(keys, flags, carry_key, r_open, s_open,
-                      boundary=None):
-    """Within one sorted (key, flag) tile, compute inclusive per-position
-    counts of R (flag 0) and S (flag 1) elements inside each maximal
-    equal-key segment, merging the open segment carried across tiles.
-
-    Returns (c0, c1, f) where f marks positions with a segment boundary at
-    or before them (f==0 ⇒ the position continues the carried-in segment,
-    and its counts already include r_open/s_open).
-
-    The scan is hierarchical: a 7-pass Hillis–Steele segmented scan WITHIN
-    each 128-lane row, then a segmented scan over the 128 per-row summaries
-    on a (rows, 1) column (1/128th the data per pass), then a lane
-    broadcast applies each row's carried-in count — ~half the full-tile
-    passes of the flat log2(T) formulation (the per-substage-pass cost
-    model of PLAN's round-1 attribution).
-    """
-    from . import bitonic
-
-    rows = keys.shape[0]
-    if boundary is not None:
-        b = boundary  # caller computed it (multi-plane keys, KEY_8B)
-    else:
-        idx = bitonic.flat_index(keys.shape)
-        prev = bitonic.shift_right_flat(keys, 1)
-        b = (keys != prev).astype(jnp.int32)
-        b = jnp.where(idx == 0, (keys != carry_key).astype(jnp.int32), b)
-    n = rows * LANES
-    # pack both counters into one lane when they fit 15 bits each — halves
-    # the scan's VMEM traffic (within-tile counts are bounded by T)
-    packed = n <= (1 << 14)
-    if packed:
-        vs = [(flags == 0).astype(jnp.int32) +
-              ((flags == 1).astype(jnp.int32) << 15)]
-    else:
-        vs = [(flags == 0).astype(jnp.int32), (flags == 1).astype(jnp.int32)]
-    lane = jax.lax.broadcasted_iota(jnp.int32, keys.shape, 1)
-    f = b
-    d = 1
-    while d < LANES:
-        valid = lane >= d
-        keep = (f == 0) & valid
-        vs = [v + jnp.where(keep, bitonic._roll(v, d, 1), 0) for v in vs]
-        f = f | jnp.where(valid, bitonic._roll(f, d, 1), 0)
-        d *= 2
-    # per-row summaries: counts since the row's last boundary, boundary flag
-    w_cols = [v[:, LANES - 1:] for v in vs]   # (rows, 1)
-    g_col = f[:, LANES - 1:]
-    # exclusive over rows: shift down one row, then inclusive segmented scan
-    rowi = jax.lax.broadcasted_iota(jnp.int32, g_col.shape, 0)
-    w_cols = [jnp.where(rowi >= 1, bitonic._roll(w, 1, 0), 0)
-              for w in w_cols]
-    g_col = jnp.where(rowi >= 1, bitonic._roll(g_col, 1, 0), 0)
-    d = 1
-    while d < rows:
-        valid = rowi >= d
-        keep = (g_col == 0) & valid
-        w_cols = [w + jnp.where(keep, bitonic._roll(w, d, 0), 0)
-                  for w in w_cols]
-        g_col = g_col | jnp.where(valid, bitonic._roll(g_col, d, 0), 0)
-        d *= 2
-    # apply row carries: positions before the row's first boundary continue
-    # the previous rows' open segment
-    no_row_boundary = f == 0
-    vs = [v + jnp.where(no_row_boundary, jnp.broadcast_to(w, keys.shape), 0)
-          for v, w in zip(vs, w_cols)]
-    f = f | jnp.broadcast_to(g_col, keys.shape)
-    if packed:
-        v0, v1 = vs[0] & ((1 << 15) - 1), vs[0] >> 15
-    else:
-        v0, v1 = vs
-    open_seg = f == 0
-    c0 = v0 + jnp.where(open_seg, r_open, 0)
-    c1 = v1 + jnp.where(open_seg, s_open, 0)
-    return c0, c1, f, b
-
-
-def _count_kernel(lens_ref, rk_hbm, sk_hbm, out_ref, wa0, wb0, wa1, wb1,
-                  insem, *, tile_rows: int, prefetch: bool = True,
-                  s_negated: bool = False):
-    """Stream-merge two sorted key columns and count equi-join matches.
-
-    The vectorized replacement of the reference's scalar merge_join
-    (joincommon.c:239-312): per output tile, select the T smallest of the
-    two head windows (flags synthesized per source — no payload or flag
-    arrays ever touch HBM), then add up per-segment cntR·cntS products via
-    a segmented scan, carrying the open segment across tiles.  Reads each
-    key exactly once and writes nothing but two scalars.
-
-    Machinery design (round-3 trim of the 92 ms @128M kernel):
-
-    * window DMAs are DOUBLE-BUFFERED one tile ahead: the cursor can
-      advance by at most T per tile, so a 2T+spare window issued at tile t
-      from the CURRENT cursor always covers tile t+1's read, whatever the
-      merge consumes — the DMA issued at t is in flight through t's whole
-      compute and waited at t+1 (the leaf-prefetch idea of PLAN round-1,
-      shaped so the conditional-DMA code stays trivial: two static
-      ping-pong buffers, two tiles per loop iteration, no pl.when).
-    * the merge network runs KEY-ONLY comparators with the source tag
-      riding along (bitonic.cmpex_tagged): per-segment tag multisets are
-      permutation-invariant, which is all the count reduction consumes.
-    * consumption advances by the tag counts of the emitted tile
-      (inc_a = #tag0), replacing the merge-path cons_a + clamps.
-
-    Totals accumulate as (hi, lo) base-2^30 limbs; per-segment products
-    must stay below 2^29 (every reference workload satisfies this: pk-fk
-    joins have cntR=1 and cntS ≤ |S|/maxid heavy hitters well under 2^29).
-    A segment whose cntR·cntS reaches 2^29 raises the overflow flag in the
-    output (checked at close time in float32, conservatively) so callers
-    fall back to an exact wide path instead of silently wrapping.
-
-    MAINTENANCE: the window machinery (end-clamped issue(), 2T+spare
-    ping-pong, guarded dead-tile state, dangling-prefetch drain) is
-    intentionally instantiated THREE times — here, `_count_kernel2`
-    (4 streams), `_count_kernel64` (plane pairs) — because the stream
-    count, buffer layout, and cursor direction differ structurally; a
-    fix to any clamp/skip/drain invariant must be applied to all three.
-    """
-    from . import bitonic
-    from .bitonic import KEY_NEG_INF, KEY_POS_INF, LANES
-
-    T = tile_rows * LANES
-    WIN = 2 * tile_rows + 8   # prefetch window rows (covers cursor+T+spare)
-    nR = lens_ref[0]
-    nS = lens_ref[1]
-    total = nR + nS
-    ntiles = (total + T - 1) // T
-
-    def issue(dst, src_hbm, elem, sem):
-        """Start the 2-tile window DMA at the row floor of ``elem``; returns
-        the clamped base row (the in-flight window covers [base, base+WIN)
-        rows, enough for any cursor in [elem, elem+T])."""
-        row = jnp.minimum(elem // LANES, src_hbm.shape[0] - WIN)
-        pltpu.make_async_copy(
-            src_hbm.at[pl.ds(row, WIN), :], dst, sem).start()
-        return row
-
-    def window(buf, elem, base_row):
-        """Aligned T-element view of ``buf`` (whose row 0 is ``base_row``)
-        starting at element ``elem``."""
-        off = elem - base_row * LANES
-        rowoff, skip = off // LANES, off % LANES
-        win = buf[pl.ds(rowoff, tile_rows + 8), :]
-        return bitonic.shift_flat(win, skip)[:tile_rows]
-
-    # stream-B cursor → physical window start.  ``s_negated``: the S
-    # column holds -S sorted ascending with a T-element front guard (see
-    # merge_join_count_fused); reading [nS - eb, ..) and NEGATING yields
-    # the REVERSED ascending window directly — one elementwise negate
-    # replaces the 14-stage flip_flat per tile:
-    #   S'_phys[P + j] = -S_asc[nS-1-j], P = T
-    #   ⇒ -S'_phys[(nS - eb) + x] = S_asc[eb + T-1-x] = flip(window)[x]
-    def b_elem(eb):
-        return nS - eb if s_negated else eb
-
-    def b_issue_elem(eb):
-        # prefetch base covering the NEXT tile's window (cursor moves
-        # backward through the physical S' column when s_negated)
-        return jnp.maximum(0, nS - eb - T) if s_negated else eb
-
-    fidx = bitonic.flat_index((tile_rows, LANES))
-
-    def tile_compute(t, st, ak, bk):
-        ea, eb, carry_key, r_open, s_open, hi, lo, ovf = st
-        avail_a = nR - ea
-        avail_b = nS - eb
-        fa = jnp.where(fidx < avail_a, 0, 2).astype(jnp.int32)
-        ak = jnp.where(fidx < avail_a, ak, KEY_POS_INF)
-        if s_negated:
-            bk_r = jnp.where(fidx >= T - avail_b,
-                             jax.lax.neg(bk), KEY_POS_INF)
-        else:
-            bk = jnp.where(fidx < avail_b, bk, KEY_POS_INF)
-            bk_r = bitonic.flip_flat(bk)
-        # flip(B)'s validity mask needs no data reversal: reversed position
-        # i holds B element T-1-i, valid iff T-1-i < avail_b
-        fb_r = jnp.where(fidx >= T - avail_b, 1, 2).astype(jnp.int32)
-        le = ak <= bk_r
-        hk = jnp.where(le, ak, bk_r)
-        hf = jnp.where(le, fa, fb_r)
-        mk, mf = bitonic.bitonic_merge_tagged(hk, hf, ascending=True)
-
-        # consumption = valid elements of each source in the emitted tile
-        inc_a = jnp.sum((mf == 0).astype(jnp.int32))
-        inc_b = jnp.sum((mf == 1).astype(jnp.int32))
-        inc_out = jnp.minimum(jnp.int32(T), total - t * T)
-
-        # the scan already derived the boundary vector b (b[0] compares
-        # against carry_key) — reuse it instead of recomputing the
-        # shift+compare per tile
-        c0, c1, f, b = _segmented_counts(mk, mf, carry_key, r_open, s_open)
-        b0 = jnp.sum(jnp.where(fidx == 0, b, 0))
-        # a segment closes at i when position i+1 starts a new key;
-        # the last position closes in a later tile (or at stream end)
-        bnext = bitonic.shift_flat(b, 1)
-        bnext = jnp.where(fidx == T - 1, 0, bnext)
-        closes = jnp.sum(bnext * c0 * c1)
-        # limb-safety check at segment close: products are exact in int32
-        # only below 2^31; the accumulation bound needs < 2^29 per segment.
-        # float32 compare is conservative near 2^29 (ties round to the
-        # threshold), so overflowing workloads are always flagged.
-        big = jnp.float32(1 << 29)
-        pf = c0.astype(jnp.float32) * c1.astype(jnp.float32)
-        ovf = ovf | jnp.sum(((bnext > 0) & (pf >= big)).astype(jnp.int32))
-        ro_f = r_open.astype(jnp.float32) * s_open.astype(jnp.float32)
-        ovf = ovf | jnp.where((b0 > 0) & (ro_f >= big), 1, 0)
-
-        # open-segment carry from the last valid position; when the tile is
-        # partial (stream end) the +inf junk boundary already closed the
-        # final segment above, so the carry must not re-add it
-        lv = inc_out - 1
-        at_lv = fidx == lv
-        partial = inc_out < T
-        key_lv = jnp.sum(jnp.where(at_lv, mk, 0))
-        r_new = jnp.where(partial, 0, jnp.sum(jnp.where(at_lv, c0, 0)))
-        s_new = jnp.where(partial, 0, jnp.sum(jnp.where(at_lv, c1, 0)))
-
-        # carry the lo limb between the two adds: lo (< 2^30) + closes
-        # (≤ 2^29 carried close + in-tile sum ≤ T^2/4) and then
-        # lo + b0·r_open·s_open (≤ 2^29) each stay below INT32_MAX, whereas
-        # their one-shot sum could wrap right at the invariant boundary
-        lo = lo + closes
-        hi = hi + (lo >> 30)
-        lo = lo & ((1 << 30) - 1)
-        lo = lo + b0 * r_open * s_open
-        hi = hi + (lo >> 30)
-        lo = lo & ((1 << 30) - 1)
-        return (ea + inc_a, eb + inc_b, key_lv, r_new, s_new, hi, lo, ovf)
-
-    init8 = (jnp.int32(0), jnp.int32(0), jnp.int32(KEY_NEG_INF),
-             jnp.int32(0), jnp.int32(0), jnp.int32(0), jnp.int32(0),
-             jnp.int32(0))
-
-    if not prefetch:
-        # single-buffered variant: per-tile DMA + wait at a static window
-        # offset (no VMEM realignment of a dynamic row start) — the A/B
-        # foil for the prefetch path's DMA-overlap-vs-realignment trade
-        def load(dst, src_hbm, elem, sem):
-            row = jnp.minimum(elem // LANES,
-                              src_hbm.shape[0] - (tile_rows + 8))
-            cp = pltpu.make_async_copy(
-                src_hbm.at[pl.ds(row, tile_rows + 8), :],
-                dst.at[pl.ds(0, tile_rows + 8), :], sem)
-            cp.start()
-            return cp, elem % LANES
-
-        def tile_body(t, st):
-            cp1, skip_a = load(wa0, rk_hbm, st[0], insem.at[0])
-            cp2, skip_b = load(wb0, sk_hbm, b_elem(st[1]), insem.at[1])
-            cp1.wait()
-            cp2.wait()
-            ak = bitonic.shift_flat(wa0[: tile_rows + 8], skip_a)[:tile_rows]
-            bk = bitonic.shift_flat(wb0[: tile_rows + 8], skip_b)[:tile_rows]
-            return tile_compute(t, st, ak, bk)
-
-        ea, eb, ck, r_open, s_open, hi, lo, ovf = jax.lax.fori_loop(
-            0, ntiles, tile_body, init8)
-        ovf = ovf | jnp.where(
-            r_open.astype(jnp.float32) * s_open.astype(jnp.float32)
-            >= jnp.float32(1 << 29), 1, 0)
-        lo = lo + r_open * s_open
-        hi = hi + (lo >> 30)
-        lo = lo & ((1 << 30) - 1)
-        out_ref[0, 0] = hi
-        out_ref[0, 1] = lo
-        out_ref[0, 2] = ovf
-        return
-
-    def guarded(t, st, ak, bk):
-        """Run tile t's compute; discard all state updates past the last
-        tile (the 2-per-iteration loop overshoots by one on odd counts —
-        the wasted tile reads clamped junk and its result is dropped)."""
-        new = tile_compute(t, st, ak, bk)
-        live = t < ntiles
-        return tuple(jnp.where(live, n, o) for n, o in zip(new, st))
-
-    # prologue: tile 0's windows into buffer set 0
-    base_a0 = issue(wa0, rk_hbm, jnp.int32(0), insem.at[0])
-    base_b0 = issue(wb0, sk_hbm, b_issue_elem(jnp.int32(0)), insem.at[1])
-    init = init8 + (base_a0, base_b0)
-
-    def pair_body(it, carry):
-        st = carry[:8]
-        base_a, base_b = carry[8], carry[9]
-        t0 = 2 * it
-        # prefetch t0+1's windows into set 1 from the current cursors
-        # (the cursor advances at most T per tile, so the 2T window issued
-        # here covers whatever tile t0 consumes); in flight through tile
-        # t0's whole compute
-        base_a1 = issue(wa1, rk_hbm, st[0], insem.at[2])
-        base_b1 = issue(wb1, sk_hbm, b_issue_elem(st[1]), insem.at[3])
-        # consume set 0 (issued one tile ago)
-        pltpu.make_async_copy(
-            rk_hbm.at[pl.ds(base_a, WIN), :], wa0, insem.at[0]).wait()
-        pltpu.make_async_copy(
-            sk_hbm.at[pl.ds(base_b, WIN), :], wb0, insem.at[1]).wait()
-        st = guarded(t0, st, window(wa0, st[0], base_a),
-                     window(wb0, b_elem(st[1]), base_b))
-        # prefetch t0+2's windows into set 0 (in flight through t0+1)
-        base_a0n = issue(wa0, rk_hbm, st[0], insem.at[0])
-        base_b0n = issue(wb0, sk_hbm, b_issue_elem(st[1]), insem.at[1])
-        # consume set 1
-        pltpu.make_async_copy(
-            rk_hbm.at[pl.ds(base_a1, WIN), :], wa1, insem.at[2]).wait()
-        pltpu.make_async_copy(
-            sk_hbm.at[pl.ds(base_b1, WIN), :], wb1, insem.at[3]).wait()
-        st = guarded(t0 + 1, st, window(wa1, st[0], base_a1),
-                     window(wb1, b_elem(st[1]), base_b1))
-        return st + (base_a0n, base_b0n)
-
-    npairs = (ntiles + 1) // 2
-    final = jax.lax.fori_loop(0, npairs, pair_body, init)
-    ea, eb, ck, r_open, s_open, hi, lo, ovf = final[:8]
-    # drain the dangling set-0 prefetch (semaphores must be zero at kernel
-    # end); matches the prologue issue when the loop ran zero iterations
-    pltpu.make_async_copy(
-        rk_hbm.at[pl.ds(final[8], WIN), :], wa0, insem.at[0]).wait()
-    pltpu.make_async_copy(
-        sk_hbm.at[pl.ds(final[9], WIN), :], wb0, insem.at[1]).wait()
-    ovf = ovf | jnp.where(
-        r_open.astype(jnp.float32) * s_open.astype(jnp.float32)
-        >= jnp.float32(1 << 29), 1, 0)
-    lo = lo + r_open * s_open
-    hi = hi + (lo >> 30)
-    lo = lo & ((1 << 30) - 1)
-    out_ref[0, 0] = hi
-    out_ref[0, 1] = lo
-    out_ref[0, 2] = ovf
-
-
-def merge_join_count_fused(rk2d, sk2d, nR: int, nS: int,
-                           tile_rows: int = sort_ops.TILE_ROWS_DEFAULT,
-                           interpret: bool | None = None,
-                           prefetch: bool | None = None,
-                           s_negated: bool = False):
-    """Exact match count of two sorted key columns in one read-only pass.
-
-    ``rk2d``/``sk2d`` are (rows, 128) ascending key layouts with at least
-    tile_rows+8 spare rows past ceil(n/128) (as produced by the 2D sort
-    compositions).  Returns the device (1, 3) stats row
-    ``[hi, lo, overflow]``: total = hi * 2^30 + lo (combine host-side in
-    int64), valid only when ``overflow == 0`` — nonzero means some
-    segment's cntR·cntS reached 2^29 and the caller must take an exact
-    wide path (see :func:`finish_count_fused`).
-
-    ``interpret`` defaults to "not on TPU"; pass it explicitly when the
-    executing mesh's platform differs from the default backend (the
-    CPU-mesh dryrun under a TPU default).
-
-    ``s_negated``: ``sk2d`` holds the NEGATED S keys sorted ascending
-    (= S descending).  The kernel then reads S windows from the back and
-    negates them — one elementwise op replacing the 14-stage flip_flat
-    per tile.  The flagship m-way model sorts S this way; symmetric-input
-    callers (distributed paths) pass plain ascending columns.
-    """
-    import functools as ft
-    import os
-
-    if interpret is None:
-        interpret = sort_ops._interpret()
-    if prefetch is None:
-        # same-session A/B on v5e at 128M⋈128M (PLAN round-3): old
-        # lex+flat-scan kernel 114.1 ms, tagged+hierarchical-scan with
-        # single-buffered windows 109.6 ms, with the 2T double-buffered
-        # prefetch 98.9 ms — prefetch on by default
-        prefetch = os.environ.get("SMJ_COUNT_PREFETCH", "1") == "1"
-
-    # nR/nS may be traced scalars (distributed path) — the kernel reads
-    # them from SMEM either way
-    lens_arr = jnp.stack([jnp.asarray(nR, jnp.int32),
-                          jnp.asarray(nS, jnp.int32)])
-    win_rows = 2 * tile_rows + 8  # the double-buffered 2T prefetch window
-
-    def ensure_min_rows(x):
-        # the prefetch DMA needs at least one whole window of rows
-        if x.shape[0] >= win_rows:
-            return x
-        pad = jnp.full((win_rows - x.shape[0], LANES), KEY_POS_INF,
-                       jnp.int32)
-        return jnp.concatenate([x, pad], axis=0)
-
-    def ensure_spare(x, n):
-        # the end-clamped window DMA (issue()) keeps the in-buffer offset
-        # <= tile_rows only when the layout has >= tile_rows+8 rows past
-        # the live data; the sort compositions guarantee that for THEIR
-        # tile_rows, which may be smaller than the count tile (e.g. the
-        # low-mwaybufsize sort tile 128 vs COUNT_TILE_ROWS 256) — then
-        # the clamped window would read past the VMEM scratch and merge
-        # garbage.  Pad when the static shape cannot prove the spare
-        # (values are masked by the avail counts; any sentinel works).
-        need = tile_rows + 8
-        if isinstance(n, (int, np.integer)):
-            live = -(-int(n) // LANES)
-            if x.shape[0] - live >= need:
-                return x
-        pad = jnp.full((need, LANES), KEY_POS_INF, jnp.int32)
-        return jnp.concatenate([x, pad], axis=0)
-
-    rk2d = ensure_min_rows(ensure_spare(rk2d, nR))
-    sk2d = ensure_min_rows(ensure_spare(sk2d, nS))
-    if s_negated:
-        # front guard of exactly T elements so the backward cursor's
-        # physical window start nS - eb never goes negative (values are
-        # never read into valid positions — any sentinel works)
-        sk2d = jnp.concatenate(
-            [jnp.full((tile_rows, LANES), KEY_POS_INF, jnp.int32), sk2d],
-            axis=0)
-    out = pl.pallas_call(
-        ft.partial(_count_kernel, tile_rows=tile_rows, prefetch=prefetch,
-                   s_negated=s_negated),
-        out_shape=jax.ShapeDtypeStruct((1, 3), jnp.int32),
-        grid=(1,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        scratch_shapes=[
-            pltpu.VMEM((win_rows, LANES), jnp.int32),
-            pltpu.VMEM((win_rows, LANES), jnp.int32),
-            pltpu.VMEM((win_rows, LANES), jnp.int32),
-            pltpu.VMEM((win_rows, LANES), jnp.int32),
-            pltpu.SemaphoreType.DMA((4,)),
-        ],
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(lens_arr, rk2d, sk2d)
-    return out
-
-
-def _count_kernel2(lens_ref, rk_hbm, sk_hbm, out_ref, bufs0, bufs1, insem,
-                   *, tile_rows: int, stride_r_rows: int,
-                   stride_s_rows: int):
-    """4-way-select fused count: stream-merge TWO ascending runs per side
-    and count matches — lets each sort composition stop one merge level
-    early (multiwaymerge.merge_levels_2runs), deleting the final tree
-    traversal per element (4n bytes written + 4n re-read + its substages)
-    at the price of THREE tagged merge networks per emitted tile instead
-    of one (two intra-side selects + the cross-side select).
-
-    Per tile: the T smallest of the R union is the sorted lower half of
-    the tagged bitonic merge of (R1 window, flip(R2 window)) — same for
-    S — and the T smallest of (R union ∪ S union) ⊆ those two lower
-    halves, so one more tagged merge emits the tile.  Tags 0/1 = R run,
-    2/3 = S run, >=4 = invalid; per-run consumption = the emitted tile's
-    tag counts; the segment machinery consumes flags = tag >> 1 exactly
-    as :func:`_count_kernel` does.  Double-buffered 2T windows per
-    stream (the V2 prefetch medicine), streams indexed 0..3 in one
-    (4, WIN, 128) scratch pair.
-
-    MAINTENANCE: window machinery deliberately mirrors `_count_kernel`
-    and `_count_kernel64` (see the note there) — invariant fixes must
-    land in all three.
-    """
-    from . import bitonic
-    from .bitonic import KEY_NEG_INF, KEY_POS_INF, LANES
-
-    T = tile_rows * LANES
-    WIN = 2 * tile_rows + 8
-    nA1, nA2, nB1, nB2 = (lens_ref[0], lens_ref[1], lens_ref[2],
-                          lens_ref[3])
-    lens = (nA1, nA2, nB1, nB2)
-    base = (jnp.int32(0), jnp.int32(stride_r_rows * LANES),
-            jnp.int32(0), jnp.int32(stride_s_rows * LANES))
-    hbm = (rk_hbm, rk_hbm, sk_hbm, sk_hbm)
-    total = nA1 + nA2 + nB1 + nB2
-    ntiles = (total + T - 1) // T
-    fidx = bitonic.flat_index((tile_rows, LANES))
-
-    def issue(bufs, s, elem, semoff):
-        row = jnp.minimum((base[s] + elem) // LANES,
-                          hbm[s].shape[0] - WIN)
-        pltpu.make_async_copy(
-            hbm[s].at[pl.ds(row, WIN), :], bufs.at[s],
-            insem.at[semoff + s]).start()
-        return row
-
-    def wait(bufs, s, row, semoff):
-        pltpu.make_async_copy(
-            hbm[s].at[pl.ds(row, WIN), :], bufs.at[s],
-            insem.at[semoff + s]).wait()
-
-    def window(bufs, s, elem, base_row):
-        off = base[s] + elem - base_row * LANES
-        rowoff, skip = off // LANES, off % LANES
-        win = bufs[s, pl.ds(rowoff, tile_rows + 8), :]
-        return bitonic.shift_flat(win, skip)[:tile_rows]
-
-    def select_tagged(ak, at, bk, bt):
-        """Sorted lower half of two ascending tagged windows (the
-        intra-side and cross-side select stages share it)."""
-        bk_r = bitonic.flip_flat(bk)
-        bt_r = bitonic.flip_flat(bt)
-        le = ak <= bk_r
-        hk = jnp.where(le, ak, bk_r)
-        ht = jnp.where(le, at, bt_r)
-        return bitonic.bitonic_merge_tagged(hk, ht, ascending=True)
-
-    def tile_compute(t, st, wins):
-        (e0, e1, e2, e3, carry_key, r_open, s_open, hi, lo, ovf) = st
-        es = (e0, e1, e2, e3)
-        ks, ts = [], []
-        for s in range(4):
-            avail = lens[s] - es[s]
-            ks.append(jnp.where(fidx < avail, wins[s], KEY_POS_INF))
-            ts.append(jnp.where(fidx < avail, jnp.int32(s),
-                                jnp.int32(4)).astype(jnp.int32))
-        rk_, rt_ = select_tagged(ks[0], ts[0], ks[1], ts[1])
-        sk_, st_ = select_tagged(ks[2], ts[2], ks[3], ts[3])
-        mk, mt = select_tagged(rk_, rt_, sk_, st_)
-
-        incs = [jnp.sum((mt == s).astype(jnp.int32)) for s in range(4)]
-        inc_out = jnp.minimum(jnp.int32(T), total - t * T)
-        mf = mt >> 1  # 0 = R, 1 = S, 2 = invalid — the _count_kernel flags
-
-        c0, c1, f, b = _segmented_counts(mk, mf, carry_key, r_open, s_open)
-        b0 = jnp.sum(jnp.where(fidx == 0, b, 0))
-        bnext = bitonic.shift_flat(b, 1)
-        bnext = jnp.where(fidx == T - 1, 0, bnext)
-        closes = jnp.sum(bnext * c0 * c1)
-        big = jnp.float32(1 << 29)
-        pf = c0.astype(jnp.float32) * c1.astype(jnp.float32)
-        ovf = ovf | jnp.sum(((bnext > 0) & (pf >= big)).astype(jnp.int32))
-        ro_f = r_open.astype(jnp.float32) * s_open.astype(jnp.float32)
-        ovf = ovf | jnp.where((b0 > 0) & (ro_f >= big), 1, 0)
-
-        lv = inc_out - 1
-        at_lv = fidx == lv
-        partial = inc_out < T
-        key_lv = jnp.sum(jnp.where(at_lv, mk, 0))
-        r_new = jnp.where(partial, 0, jnp.sum(jnp.where(at_lv, c0, 0)))
-        s_new = jnp.where(partial, 0, jnp.sum(jnp.where(at_lv, c1, 0)))
-
-        lo = lo + closes
-        hi = hi + (lo >> 30)
-        lo = lo & ((1 << 30) - 1)
-        lo = lo + b0 * r_open * s_open
-        hi = hi + (lo >> 30)
-        lo = lo & ((1 << 30) - 1)
-        return (e0 + incs[0], e1 + incs[1], e2 + incs[2], e3 + incs[3],
-                key_lv, r_new, s_new, hi, lo, ovf)
-
-    def guarded(t, st, wins):
-        new = tile_compute(t, st, wins)
-        live = t < ntiles
-        return tuple(jnp.where(live, n, o) for n, o in zip(new, st))
-
-    init10 = (jnp.int32(0),) * 4 + (jnp.int32(KEY_NEG_INF),) + \
-        (jnp.int32(0),) * 5
-
-    # prologue: tile 0's windows into buffer set 0 (sems 0..3)
-    rows0 = tuple(issue(bufs0, s, jnp.int32(0), 0) for s in range(4))
-    init = init10 + rows0
-
-    def pair_body(it, carry):
-        st = carry[:10]
-        rows_a = carry[10:14]
-        t0 = 2 * it
-        # prefetch t0+1 into set 1 (sems 4..7) from the current cursors
-        rows_b = tuple(issue(bufs1, s, st[s], 4) for s in range(4))
-        for s in range(4):
-            wait(bufs0, s, rows_a[s], 0)
-        st = guarded(t0, st, tuple(
-            window(bufs0, s, st[s], rows_a[s]) for s in range(4)))
-        # prefetch t0+2 into set 0
-        rows_an = tuple(issue(bufs0, s, st[s], 0) for s in range(4))
-        for s in range(4):
-            wait(bufs1, s, rows_b[s], 4)
-        st = guarded(t0 + 1, st, tuple(
-            window(bufs1, s, st[s], rows_b[s]) for s in range(4)))
-        return st + rows_an
-
-    npairs = (ntiles + 1) // 2
-    final = jax.lax.fori_loop(0, npairs, pair_body, init)
-    st = final[:10]
-    for s in range(4):
-        wait(bufs0, s, final[10 + s], 0)  # drain the dangling prefetch
-    _, _, _, _, _, r_open, s_open, hi, lo, ovf = st
-    ovf = ovf | jnp.where(
-        r_open.astype(jnp.float32) * s_open.astype(jnp.float32)
-        >= jnp.float32(1 << 29), 1, 0)
-    lo = lo + r_open * s_open
-    hi = hi + (lo >> 30)
-    lo = lo & ((1 << 30) - 1)
-    out_ref[0, 0] = hi
-    out_ref[0, 1] = lo
-    out_ref[0, 2] = ovf
-
-
-def merge_join_count_fused2(rk2d, sk2d, nR: int, nS: int,
-                            stride_r_rows: int, stride_s_rows: int,
-                            tile_rows: int = sort_ops.TILE_ROWS_DEFAULT,
-                            interpret: bool | None = None):
-    """Exact match count over TWO-RUN sorted layouts: each side holds two
-    ascending runs (run 0 at rows [0, stride), run 1 at [stride, ...)
-    with the uniform-lens split len0 = min(n, stride*128)) — the output
-    of a composition that stops one merge level early
-    (multiwaymerge.merge_levels_2runs).  Returns the (1, 3)
-    [hi, lo, overflow] stats row (combine with
-    :func:`finish_count_fused`).  A/B surface for the round-4 fused
-    last-level experiment (see PLAN)."""
-    import functools as ft
-
-    if interpret is None:
-        interpret = sort_ops._interpret()
-    spanR = stride_r_rows * LANES
-    spanS = stride_s_rows * LANES
-    nR = jnp.asarray(nR, jnp.int32)
-    nS = jnp.asarray(nS, jnp.int32)
-    lens_arr = jnp.stack([
-        jnp.minimum(nR, spanR), jnp.maximum(nR - spanR, 0),
-        jnp.minimum(nS, spanS), jnp.maximum(nS - spanS, 0)])
-    win_rows = 2 * tile_rows + 8
-
-    def ensure_rows(x, min_rows):
-        if x.shape[0] >= min_rows:
-            return x
-        pad = jnp.full((min_rows - x.shape[0], LANES), KEY_POS_INF,
-                       jnp.int32)
-        return jnp.concatenate([x, pad], axis=0)
-
-    # clamp-free invariant: the last run's windows must have WIN rows of
-    # spare past its live end (see _count_kernel's ensure_spare)
-    rk2d = ensure_rows(rk2d, 2 * stride_r_rows + win_rows)
-    sk2d = ensure_rows(sk2d, 2 * stride_s_rows + win_rows)
-    bufs = pltpu.VMEM((4, win_rows, LANES), jnp.int32)
-    return pl.pallas_call(
-        ft.partial(_count_kernel2, tile_rows=tile_rows,
-                   stride_r_rows=stride_r_rows,
-                   stride_s_rows=stride_s_rows),
-        out_shape=jax.ShapeDtypeStruct((1, 3), jnp.int32),
-        grid=(1,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        scratch_shapes=[bufs, bufs, pltpu.SemaphoreType.DMA((8,))],
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(lens_arr, rk2d, sk2d)
-
-
-def _count_kernel64(lens_ref, rhi_hbm, rlo_hbm, shi_hbm, slo_hbm, out_ref,
-                    *scratch,
-                    tile_rows: int, prefetch: bool = True,
-                    s_negated: bool = False):
-    """KEY_8B fused count: stream-merge two sorted TWO-PLANE (hi, lo)
-    int64-key columns and count matches — the engine-path replacement of
-    the forced-scalar KEY_8B count (the reference can only run KEY_8B
-    through its scalar merge_join, main.c:871-877; the plane-pair lex
-    comparators put it back on the vector engine).  Round-4 sweep
-    (VERDICT r3 #7) applied the V2 medicine: window DMAs double-buffered
-    one tile ahead per plane (``prefetch``, the exact scheme of
-    :func:`_count_kernel` — the 2T+spare window issued from the current
-    cursor always covers the next tile since advance <= T); identical
-    segment/limb/overflow machinery.
-
-    ``s_negated``: the S planes hold the BITWISE-NOT planes sorted
-    ascending (~ is order-reversing and total on int32, and NOT of both
-    planes reverses the (hi, lo) lex order — the plane-pair analog of
-    the 32-bit kernel's negated-S trick); the kernel reads S windows
-    back-to-front and applies one elementwise ~ per plane, replacing the
-    two 14-stage flip_flat calls per tile.
-
-    MAINTENANCE: window machinery deliberately mirrors `_count_kernel`
-    and `_count_kernel2` (see the note in `_count_kernel`) — invariant
-    fixes must land in all three."""
-    from . import bitonic
-    from .bitonic import KEY_NEG_INF, KEY_POS_INF, LANES
-
-    # scratch: one window buffer set of 4 (single-buffered) or two sets
-    # of 4 (prefetch ping-pong), then the DMA semaphore array
-    insem = scratch[-1]
-    wah0, wal0, wbh0, wbl0 = scratch[0:4]
-    if prefetch:
-        wah1, wal1, wbh1, wbl1 = scratch[4:8]
-
-    T = tile_rows * LANES
-    WIN = (2 * tile_rows + 8) if prefetch else (tile_rows + 8)
-    nR = lens_ref[0]
-    nS = lens_ref[1]
-    total = nR + nS
-    ntiles = (total + T - 1) // T
-    fidx = bitonic.flat_index((tile_rows, LANES))
-
-    def b_elem(eb):
-        # backward physical cursor through the NOT-plane column (which
-        # carries a T-element front guard, see merge_join_count_fused64)
-        return nS - eb if s_negated else eb
-
-    def b_issue_elem(eb):
-        return jnp.maximum(0, nS - eb - T) if s_negated else eb
-
-    def tile_compute(t, st, ahi, alo, bhi, blo):
-        (ea, eb, ck_hi, ck_lo, r_open, s_open, hi, lo, ovf) = st
-        avail_a = nR - ea
-        avail_b = nS - eb
-        va = fidx < avail_a
-        fa = jnp.where(va, 0, 2).astype(jnp.int32)
-        ahi = jnp.where(va, ahi, KEY_POS_INF)
-        alo = jnp.where(va, alo, KEY_POS_INF)
-        if s_negated:
-            # window loaded back-to-front from the NOT-plane column:
-            # position x holds ~S_asc[eb + T-1-x] — one elementwise NOT
-            # per plane recovers flip(window)
-            in_tail = fidx >= T - avail_b
-            bhi_r = jnp.where(in_tail, ~bhi, KEY_POS_INF)
-            blo_r = jnp.where(in_tail, ~blo, KEY_POS_INF)
-        else:
-            vb = fidx < avail_b
-            bhi = jnp.where(vb, bhi, KEY_POS_INF)
-            blo = jnp.where(vb, blo, KEY_POS_INF)
-            bhi_r = bitonic.flip_flat(bhi)
-            blo_r = bitonic.flip_flat(blo)
-        fb_r = jnp.where(fidx >= T - avail_b, 1, 2).astype(jnp.int32)
-        le = bitonic._lex2_le(ahi, alo, bhi_r, blo_r)
-        hhi = jnp.where(le, ahi, bhi_r)
-        hlo = jnp.where(le, alo, blo_r)
-        hf = jnp.where(le, fa, fb_r)
-        mhi, mlo, mf = bitonic.bitonic_merge_tagged2(hhi, hlo, hf,
-                                                     ascending=True)
-
-        inc_a = jnp.sum((mf == 0).astype(jnp.int32))
-        inc_b = jnp.sum((mf == 1).astype(jnp.int32))
-        inc_out = jnp.minimum(jnp.int32(T), total - t * T)
-
-        # 64-bit segment boundaries from BOTH planes
-        prev_hi = bitonic.shift_right_flat(mhi, 1)
-        prev_lo = bitonic.shift_right_flat(mlo, 1)
-        neq = ((mhi != prev_hi) | (mlo != prev_lo)).astype(jnp.int32)
-        b = jnp.where(fidx == 0,
-                      ((mhi != ck_hi) | (mlo != ck_lo)).astype(jnp.int32),
-                      neq)
-        c0, c1_, f, _b = _segmented_counts(mhi, mf, jnp.int32(0), r_open,
-                                       s_open, boundary=b)
-        b0 = jnp.sum(jnp.where(fidx == 0, b, 0))
-        bnext = bitonic.shift_flat(neq, 1)
-        bnext = jnp.where(fidx == T - 1, 0, bnext)
-        closes = jnp.sum(bnext * c0 * c1_)
-        big = jnp.float32(1 << 29)
-        pf = c0.astype(jnp.float32) * c1_.astype(jnp.float32)
-        ovf = ovf | jnp.sum(((bnext > 0) & (pf >= big)).astype(jnp.int32))
-        ro_f = r_open.astype(jnp.float32) * s_open.astype(jnp.float32)
-        ovf = ovf | jnp.where((b0 > 0) & (ro_f >= big), 1, 0)
-
-        lv = inc_out - 1
-        at_lv = fidx == lv
-        partial = inc_out < T
-        ck_hi_n = jnp.sum(jnp.where(at_lv, mhi, 0))
-        ck_lo_n = jnp.sum(jnp.where(at_lv, mlo, 0))
-        r_new = jnp.where(partial, 0, jnp.sum(jnp.where(at_lv, c0, 0)))
-        s_new = jnp.where(partial, 0, jnp.sum(jnp.where(at_lv, c1_, 0)))
-
-        lo = lo + closes
-        hi = hi + (lo >> 30)
-        lo = lo & ((1 << 30) - 1)
-        lo = lo + b0 * r_open * s_open
-        hi = hi + (lo >> 30)
-        lo = lo & ((1 << 30) - 1)
-        return (ea + inc_a, eb + inc_b, ck_hi_n, ck_lo_n, r_new, s_new,
-                hi, lo, ovf)
-
-    init9 = (jnp.int32(0), jnp.int32(0), jnp.int32(KEY_NEG_INF),
-             jnp.int32(KEY_NEG_INF), jnp.int32(0), jnp.int32(0),
-             jnp.int32(0), jnp.int32(0), jnp.int32(0))
-
-    def finish(st):
-        _, _, _, _, r_open, s_open, hi, lo, ovf = st
-        ovf = ovf | jnp.where(
-            r_open.astype(jnp.float32) * s_open.astype(jnp.float32)
-            >= jnp.float32(1 << 29), 1, 0)
-        lo = lo + r_open * s_open
-        hi = hi + (lo >> 30)
-        lo = lo & ((1 << 30) - 1)
-        out_ref[0, 0] = hi
-        out_ref[0, 1] = lo
-        out_ref[0, 2] = ovf
-
-    if not prefetch:
-        # single-buffered foil: per-tile DMA + wait at a static offset
-        def load(dst, src_hbm, elem, sem):
-            row = jnp.minimum(elem // LANES, src_hbm.shape[0] - WIN)
-            cp = pltpu.make_async_copy(
-                src_hbm.at[pl.ds(row, WIN), :], dst, sem)
-            cp.start()
-            return cp, elem % LANES
-
-        def tile_body(t, st):
-            c1, skip_a = load(wah0, rhi_hbm, st[0], insem.at[0])
-            c2, _ = load(wal0, rlo_hbm, st[0], insem.at[1])
-            c3, skip_b = load(wbh0, shi_hbm, b_elem(st[1]), insem.at[2])
-            c4, _ = load(wbl0, slo_hbm, b_elem(st[1]), insem.at[3])
-            c1.wait(); c2.wait(); c3.wait(); c4.wait()
-            ahi = bitonic.shift_flat(wah0[:], skip_a)[:tile_rows]
-            alo = bitonic.shift_flat(wal0[:], skip_a)[:tile_rows]
-            bhi = bitonic.shift_flat(wbh0[:], skip_b)[:tile_rows]
-            blo = bitonic.shift_flat(wbl0[:], skip_b)[:tile_rows]
-            return tile_compute(t, st, ahi, alo, bhi, blo)
-
-        finish(jax.lax.fori_loop(0, ntiles, tile_body, init9))
-        return
-
-    # double-buffered: each cursor's (hi, lo) plane pair shares one base
-    def issue(dh, dl, sh_hbm, sl_hbm, elem, s0, s1):
-        row = jnp.minimum(elem // LANES, sh_hbm.shape[0] - WIN)
-        pltpu.make_async_copy(
-            sh_hbm.at[pl.ds(row, WIN), :], dh, insem.at[s0]).start()
-        pltpu.make_async_copy(
-            sl_hbm.at[pl.ds(row, WIN), :], dl, insem.at[s1]).start()
-        return row
-
-    def wait_pair(dh, dl, sh_hbm, sl_hbm, base, s0, s1):
-        pltpu.make_async_copy(
-            sh_hbm.at[pl.ds(base, WIN), :], dh, insem.at[s0]).wait()
-        pltpu.make_async_copy(
-            sl_hbm.at[pl.ds(base, WIN), :], dl, insem.at[s1]).wait()
-
-    def window(buf, elem, base_row):
-        off = elem - base_row * LANES
-        rowoff, skip = off // LANES, off % LANES
-        win = buf[pl.ds(rowoff, tile_rows + 8), :]
-        return bitonic.shift_flat(win, skip)[:tile_rows]
-
-    def guarded(t, st, wins):
-        new = tile_compute(t, st, *wins)
-        live = t < ntiles
-        return tuple(jnp.where(live, n, o) for n, o in zip(new, st))
-
-    # prologue: tile 0's windows into buffer set 0 (sems 0..3)
-    base_a0 = issue(wah0, wal0, rhi_hbm, rlo_hbm, jnp.int32(0), 0, 1)
-    base_b0 = issue(wbh0, wbl0, shi_hbm, slo_hbm,
-                    b_issue_elem(jnp.int32(0)), 2, 3)
-    init = init9 + (base_a0, base_b0)
-
-    def pair_body(it, carry):
-        st = carry[:9]
-        base_a, base_b = carry[9], carry[10]
-        t0 = 2 * it
-        # prefetch t0+1 into set 1 (sems 4..7) from the current cursors
-        base_a1 = issue(wah1, wal1, rhi_hbm, rlo_hbm, st[0], 4, 5)
-        base_b1 = issue(wbh1, wbl1, shi_hbm, slo_hbm,
-                        b_issue_elem(st[1]), 6, 7)
-        wait_pair(wah0, wal0, rhi_hbm, rlo_hbm, base_a, 0, 1)
-        wait_pair(wbh0, wbl0, shi_hbm, slo_hbm, base_b, 2, 3)
-        st = guarded(t0, st, (
-            window(wah0, st[0], base_a), window(wal0, st[0], base_a),
-            window(wbh0, b_elem(st[1]), base_b),
-            window(wbl0, b_elem(st[1]), base_b)))
-        # prefetch t0+2 into set 0
-        base_a0n = issue(wah0, wal0, rhi_hbm, rlo_hbm, st[0], 0, 1)
-        base_b0n = issue(wbh0, wbl0, shi_hbm, slo_hbm,
-                         b_issue_elem(st[1]), 2, 3)
-        wait_pair(wah1, wal1, rhi_hbm, rlo_hbm, base_a1, 4, 5)
-        wait_pair(wbh1, wbl1, shi_hbm, slo_hbm, base_b1, 6, 7)
-        st = guarded(t0 + 1, st, (
-            window(wah1, st[0], base_a1), window(wal1, st[0], base_a1),
-            window(wbh1, b_elem(st[1]), base_b1),
-            window(wbl1, b_elem(st[1]), base_b1)))
-        return st + (base_a0n, base_b0n)
-
-    npairs = (ntiles + 1) // 2
-    final = jax.lax.fori_loop(0, npairs, pair_body, init)
-    # drain the dangling set-0 prefetch
-    wait_pair(wah0, wal0, rhi_hbm, rlo_hbm, final[9], 0, 1)
-    wait_pair(wbh0, wbl0, shi_hbm, slo_hbm, final[10], 2, 3)
-    finish(final[:9])
-
-
-def merge_join_count_fused64(rhi2d, rlo2d, shi2d, slo2d, nR: int, nS: int,
-                             tile_rows: int | None = None,
-                             interpret: bool | None = None,
-                             prefetch: bool | None = None,
-                             s_negated: bool = False):
-    """KEY_8B fused count over sorted (hi, lo) plane layouts (as produced
-    by ``join64.sort64(..., return_2d=True)``).  Returns the (1, 3)
-    [hi, lo, overflow] stats row; combine with :func:`finish_count_fused`.
-
-    Defaults follow the round-4 v5e sweep (PLAN r4, scripts/exp_key8b.py):
-    tile 256 + double-buffered window prefetch, same optimum as the
-    32-bit V2 kernel; SMJ_COUNT_PREFETCH=0 / SMJ_COUNT64_TILE override.
-
-    ``s_negated``: ``shi2d``/``slo2d`` hold the BITWISE-NOT planes sorted
-    ascending (= S descending by original key; produced by sorting
-    ``(~shi, ~slo)``) — the kernel reads S windows back-to-front and
-    applies one ~ per plane instead of two 14-stage flip_flat calls per
-    tile (the plane-pair analog of the 32-bit negated-S trick).
-    """
-    import functools as ft
-
-    if interpret is None:
-        interpret = sort_ops._interpret()
-    if tile_rows is None:
-        tile_rows = int(os.environ.get("SMJ_COUNT64_TILE", "256"))
-    if prefetch is None:
-        prefetch = os.environ.get("SMJ_COUNT_PREFETCH", "1") == "1"
-    lens_arr = jnp.stack([jnp.asarray(nR, jnp.int32),
-                          jnp.asarray(nS, jnp.int32)])
-    win_rows = (2 * tile_rows + 8) if prefetch else (tile_rows + 8)
-
-    def ensure_spare(x, n):
-        # the window loads clamp their DMA start to shape - win_rows but
-        # derive the lane skip from the UNCLAMPED cursor, so an engaged
-        # clamp would misalign the window by whole rows — guarantee
-        # >= win_rows spare rows past the live data (the same invariant
-        # as merge_join_count_fused) so the clamp never engages; pad when
-        # the static shape cannot prove it
-        if isinstance(n, (int, np.integer)):
-            live = -(-int(n) // LANES)
-            if x.shape[0] - live >= win_rows:
-                return x
-        pad = jnp.full((win_rows, LANES), KEY_POS_INF, jnp.int32)
-        return jnp.concatenate([x, pad], axis=0)
-
-    rhi2d = ensure_spare(rhi2d, nR)
-    rlo2d = ensure_spare(rlo2d, nR)
-    shi2d = ensure_spare(shi2d, nS)
-    slo2d = ensure_spare(slo2d, nS)
-    if s_negated:
-        # front guard of exactly T elements so the backward cursor's
-        # physical window start nS - eb never goes negative (guard values
-        # are never read into valid positions — any sentinel works)
-        guard = jnp.full((tile_rows, LANES), KEY_POS_INF, jnp.int32)
-        shi2d = jnp.concatenate([guard, shi2d], axis=0)
-        slo2d = jnp.concatenate([guard, slo2d], axis=0)
-    win = pltpu.VMEM((win_rows, LANES), jnp.int32)
-    nbuf = 8 if prefetch else 4  # the single-buffer foil stays lean
-    return pl.pallas_call(
-        ft.partial(_count_kernel64, tile_rows=tile_rows,
-                   prefetch=prefetch, s_negated=s_negated),
-        out_shape=jax.ShapeDtypeStruct((1, 3), jnp.int32),
-        grid=(1,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] +
-                 [pl.BlockSpec(memory_space=pl.ANY)] * 4,
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        scratch_shapes=[win] * nbuf + [pltpu.SemaphoreType.DMA((nbuf,))],
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(lens_arr, rhi2d, rlo2d, shi2d, slo2d)
-
-
-class CountLimbOverflow(RuntimeError):
-    """A merge-join segment's cntR·cntS reached 2^29: the fused kernel's
-    base-2^30 limb accumulation would wrap.  Callers catch this and rerun
-    through an exact wide counter (the reference's scalar loops are exact
-    for all inputs, joincommon.c:260-305 — so must we be)."""
-
-
-def finish_count_fused(out) -> int:
-    flat = np.asarray(out).reshape(-1)
-    if int(flat[2]):
-        raise CountLimbOverflow(
-            "per-segment cntR*cntS >= 2^29 in the fused count kernel")
-    return (int(flat[0]) << 30) + int(flat[1])
-
-
-def merge_join_count_xla(rk_sorted, sk_sorted, nR: int, nS: int,
-                         return_f32_estimate: bool = False):
-    """Oracle counter via one XLA sort of tagged keys + cumsum (exact for
-    matches < 2^31).  Used in tests and as the 'scalar merge join'.
-
-    ``return_f32_estimate`` additionally returns a float32 magnitude
-    estimate of the true count: the int32 result wraps silently at 2^31,
-    and the intermediate modular arithmetic makes the wrap undetectable
-    from the int32 value alone — callers compare the estimate against a
-    conservative threshold and fall back to an exact wide counter."""
-    keys = jnp.concatenate([rk_sorted[:nR], sk_sorted[:nS]])
-    flags = jnp.concatenate(
-        [jnp.zeros(nR, jnp.int32), jnp.ones(nS, jnp.int32)]
-    )
-    mk, mf = jax.lax.sort((keys, flags), num_keys=2)
-    # For each position, rank among same-flag prefix:
-    s_prefix = jnp.cumsum(mf)  # number of S elements at positions <= p
-    pos = jnp.arange(nR + nS, dtype=jnp.int32)
-    # R elements (flag 0) sit before S on equal keys; for each R element,
-    # # of S with key < k = s_prefix at its position.  For ss_right we flip
-    # the flag polarity.
-    lt_counts = jnp.sum(jnp.where(mf == 0, s_prefix, 0))
-    mk2, mf2 = jax.lax.sort((keys, 1 - flags), num_keys=2)
-    r_mask = mf2 == 1
-    s_prefix2 = jnp.cumsum(1 - mf2)
-    le_counts = jnp.sum(jnp.where(r_mask, s_prefix2, 0))
-    if return_f32_estimate:
-        # per-position prefixes are < 2^31 (no wrap); only their int32
-        # SUMS wrap — the f32 sums don't, and their relative error
-        # (~n·eps) is far below the detection margin
-        lt_f = jnp.sum(jnp.where(mf == 0, s_prefix, 0).astype(jnp.float32))
-        le_f = jnp.sum(jnp.where(r_mask, s_prefix2, 0).astype(jnp.float32))
-        return le_counts - lt_counts, le_f - lt_f
-    return le_counts - lt_counts
+def _live_mask(m: int, n_s):
+    if n_s is None:
+        return None
+    return jnp.arange(m, dtype=jnp.int32) < n_s
+
+
+def _sum64(cnt):
+    """Exact total of int32 per-tuple counts."""
+    with jax.enable_x64(True):
+        return jnp.sum(cnt.astype(jnp.int64))
+
+
+def count_sorted(rks, sks, n_s=None):
+    """Match count as sum over S of the length of R's run of equal keys
+    that starts at S's lower bound (0 when that run holds another key)."""
+    n, m = rks.shape[0], sks.shape[0]
+    if n == 0 or m == 0:
+        return _sum64(jnp.zeros((0,), jnp.int32))
+    idx = jnp.arange(n, dtype=jnp.int32)
+    last = jnp.concatenate([rks[1:] != rks[:-1], jnp.ones((1,), bool)])
+    # exclusive end of the run holding each position
+    run_end = jax.lax.cummin(jnp.where(last, idx + 1, n), reverse=True)
+    lo = jnp.searchsorted(rks, sks, side="left").astype(jnp.int32)
+    at = jnp.minimum(lo, n - 1)
+    hit = (lo < n) & (rks[at] == sks)
+    live = _live_mask(m, n_s)
+    if live is not None:
+        hit = hit & live
+    return _sum64(jnp.where(hit, run_end[at] - lo, 0))
 
 
 def merge_join_count_numpy(rkeys: np.ndarray, skeys: np.ndarray) -> int:
-    """NumPy reference oracle: sum_k cntR(k)*cntS(k)."""
+    """NumPy reference oracle: sum_k cntR(k)*cntS(k), for keys of any
+    integer width."""
     rk, rc = np.unique(rkeys, return_counts=True)
     sk, sc = np.unique(skeys, return_counts=True)
-    inter, ri, si = np.intersect1d(rk, sk, assume_unique=True, return_indices=True)
+    _, ri, si = np.intersect1d(rk, sk, assume_unique=True,
+                               return_indices=True)
     return int(np.sum(rc[ri].astype(np.int64) * sc[si].astype(np.int64)))

@@ -1,11 +1,11 @@
-"""Distributed sort-merge join over a device mesh.
+"""Distributed sort-merge join over a device mesh, partition-first.
 
-The multi-chip realization of the reference's multi-threaded join phases
+The multi-card realization of the reference's multi-threaded join phases
 (reference: src/joins/sortmergejoin_multiway.c, joincommon.c): pthreads over
-NUMA sockets become `shard_map` over a 1-D chip mesh; the barrier-phased
-shared-memory run exchange becomes an ICI ``all_to_all``
-(:mod:`.exchange`); NUMA-local output buffers become per-shard arrays; the
-final match-count reduction is a ``psum``.
+NUMA sockets become `shard_map` over a 1-D device mesh; the barrier-phased
+shared-memory run exchange becomes an ``all_to_all`` (:mod:`.exchange`);
+NUMA-local output buffers become per-shard arrays; the per-card counts are
+summed on the host.
 
 Per-chip program (SPMD):
 
@@ -13,7 +13,7 @@ Per-chip program (SPMD):
   2. partition                — range-bucketize the local R and S shards by
                                 destination chip (phase 1 of the reference,
                                 sortmergejoin_multiway.c:331-386),
-  3. exchange                 — all_to_all padded buckets over ICI,
+  3. exchange                 — all_to_all of the padded buckets,
   4. local sort + merge-join  — each chip now owns a disjoint key range, so
                                 local match counts sum to the global count
                                 (phases 2-4 of the reference collapsed into
@@ -35,25 +35,21 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..ops import mergejoin
+from ..ops.sort import sort_keys
 from . import exchange as ex
 from .mesh import AXIS, is_2d, make_mesh
 
 
-# per-chip counts whose f32 magnitude estimate reaches this flag a
-# potential int32 wrap (true wrap at 2^31; the margin dwarfs f32 error)
-_WRAP_GUARD = 2.0e9
-
-
-def _local_join_count_xla(rk, sk):
-    """Count equi-matches between two padded local columns via the XLA
-    tag-sort counter (pads never match by construction).  Returns
-    (int32 count, wrap flag) — the count silently wraps at 2^31, so the
-    flag (from the f32 magnitude estimate) must be checked."""
-    n = rk.shape[0]
-    m = sk.shape[0]
-    cnt, est = mergejoin.merge_join_count_xla(rk, sk, n, m,
-                                              return_f32_estimate=True)
-    return cnt, (est >= _WRAP_GUARD).astype(jnp.int32)
+def _local_join_count(rk, sk):
+    """Exact equi-match count between two padded local columns: R pads
+    (+2^31-1) sort last and S pads (-2^31) match nothing, so both
+    columns count whole."""
+    with jax.named_scope("sort_r"):
+        rks = sort_keys(rk)
+    with jax.named_scope("sort_s"):
+        sks = sort_keys(sk)
+    with jax.named_scope("count"):
+        return mergejoin.count_sorted(rks, sks)
 
 
 def _shard_fn(rk, rp, sk, sp, nvalid_r, nvalid_s, *, n_chips: int,
@@ -80,13 +76,13 @@ def _shard_fn(rk, rp, sk, sp, nvalid_r, nvalid_s, *, n_chips: int,
                                         ex.R_PAD_KEY)
     bsk, bsp, sc, ovs = ex.bucketize_by(dest_s, sk, sp, ns, n_chips, cap_s,
                                         ex.S_PAD_KEY)
-    # 3. ICI all_to_all of the padded buckets
+    # 3. all_to_all of the padded buckets
     grk, grp, _ = ex.exchange(brk, brp, rc, AXIS, n_chips, cap_r)
     gsk, gsp, _ = ex.exchange(bsk, bsp, sc, AXIS, n_chips, cap_s)
     # 4. local count over the owned key range
-    cnt, wrap = _local_join_count_xla(grk, gsk)
+    cnt = _local_join_count(grk, gsk)
     overflow = ovr + ovs
-    return cnt.reshape(1), overflow.reshape(1), wrap.reshape(1)
+    return cnt.reshape(1), overflow.reshape(1)
 
 
 @functools.lru_cache(maxsize=2)
@@ -98,7 +94,7 @@ def _count_fn(mesh: Mesh, n_chips: int, cap_r: int, cap_s: int):
                           cap_s=cap_s),
         mesh=mesh,
         in_specs=(P(AXIS),) * 6,
-        out_specs=(P(AXIS), P(AXIS), P(AXIS)),
+        out_specs=(P(AXIS), P(AXIS)),
     ))
 
 
@@ -119,7 +115,7 @@ def dist_join_count(rkeys, rpayloads, skeys, spayloads, n_r: int, n_s: int,
     n_chips = int(np.prod(list(mesh.shape.values())))
     shard_r = -(-n_r // n_chips)
     shard_s = -(-n_s // n_chips)
-    # per-destination bucket capacity, aligned up for collective friendliness
+    # per-destination bucket capacity, aligned up to whole 128-key rows
     cap_r = ex.bucket_cap(shard_r, n_chips, slack, 128)
     cap_s = ex.bucket_cap(shard_s, n_chips, slack, 128)
 
@@ -132,7 +128,7 @@ def dist_join_count(rkeys, rpayloads, skeys, spayloads, n_r: int, n_s: int,
 
     sharded = NamedSharding(mesh, P(AXIS))
     fn = _count_fn(mesh, n_chips, cap_r, cap_s)
-    counts, overflow, wraps = fn(
+    counts, overflow = fn(
         jax.device_put(rk.reshape(n_chips, shard_r), sharded),
         jax.device_put(rp.reshape(n_chips, shard_r), sharded),
         jax.device_put(sk.reshape(n_chips, shard_s), sharded),
@@ -140,15 +136,4 @@ def dist_join_count(rkeys, rpayloads, skeys, spayloads, n_r: int, n_s: int,
         jax.device_put(jnp.asarray(nv_r), sharded),
         jax.device_put(jnp.asarray(nv_s), sharded),
     )
-    if int(np.asarray(wraps).sum()) > 0:
-        # a chip's local count may have wrapped int32: recount through
-        # the exact host oracle (loud, never silently wrong — the same
-        # contract as the fused kernels' CountLimbOverflow fallback)
-        from ..utils.log import warn
-
-        warn("per-chip match count near int32 range in the XLA dist "
-             "path; recounting through the exact wide path")
-        cnt = mergejoin.merge_join_count_numpy(
-            np.asarray(rkeys[:n_r]), np.asarray(skeys[:n_s]))
-        return cnt, int(np.asarray(overflow).sum())
-    return int(np.asarray(counts, np.int64).sum()), int(np.asarray(overflow).sum())
+    return int(np.asarray(counts).sum()), int(np.asarray(overflow).sum())

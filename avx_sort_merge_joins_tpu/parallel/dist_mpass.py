@@ -1,286 +1,24 @@
-"""Distributed m-pass join: sorted-run exchange + log-halving pairwise
-merge passes.
+"""Distributed m-pass join (reference: src/joins/sortmergejoin_multipass.c:
+phase 3.1 merges pairs of remote runs while pulling them to the local NUMA
+node, :410-619; phase 3.2 runs log(numruns) local 2-way merge passes,
+:621-708).
 
-The multi-chip realization of the reference's m-pass algorithm
-(reference: src/joins/sortmergejoin_multipass.c): its phase 3.1 merges
-pairs of remote runs while pulling them to the local NUMA node
-(:410-619), and phase 3.2 runs log(numruns) local 2-way merge passes over
-ping-ponged buffers (:621-708).  On TPU:
-
-  phase 1+2  — per-chip sort of the local shard (Pallas multiway_sort or
-               the lax.sort baseline),
-  exchange   — contiguous sorted-slice range exchange (same equi-depth
-               splitters as dist_mway): the ICI all_to_all is the remote
-               pull of phase 3.1, delivering each chip n_chips ascending
-               runs of its owned key range,
-  phase 3    — log2(n_chips) PAIRWISE streaming merge passes
-               (ops.sort.merge_pass) over the received runs — the defining
-               m-pass trade vs m-way's single k-way FIFO-tree pass: the
-               data is re-read once per pass (HBM-bandwidth-bound), but
-               each pass is the cheap 2-way kernel.  The first pass runs
-               in ``b_asc`` mode (both runs ascending, as received);
-               later passes consume the kernel's alternating-direction
-               output runs directly,
-  phase 4    — fused zero-write merge-join count; global count = host sum
-               (disjoint key ranges).
+With the received runs re-sorted by one library sort, there are no
+pairwise passes left to run: the m-pass program is the distributed m-way
+one (sorted-run exchange of equi-depth ranges, re-sort, plain count).
 """
 
 from __future__ import annotations
 
-import functools
-
 from typing import Optional
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax import shard_map
+from jax.sharding import Mesh
 
-from ..ops import mergejoin, sort as sort_ops
-from ..ops.bitonic import KEY_POS_INF, LANES
-from ..utils import cache
-from . import exchange as ex
-from .dist_mway import (_equidepth_bounds, _local_sorted_2d,
-                        _mesh_platform, _slice_buckets)
-from .mesh import (AXIS, HOST_AXIS, flat_axes, flat_spec, host_shape,
-                   is_2d, make_mesh)
-
-
-def _pairwise_merge_received(rk_flat, counts, n_chips: int, cap: int,
-                             tile_rows: int, use_pallas: bool,
-                             interp: bool):
-    """Reduce n_chips received ascending runs to one sorted column via
-    log2 pairwise merge passes (the reference's ping-ponged halving loop,
-    sortmergejoin_multipass.c:634-656).  Returns (merged2d, total)."""
-    total = jnp.sum(counts)
-    rows = rk_flat.shape[0] // LANES
-    pad_rows = tile_rows + 8
-    if not use_pallas:
-        ks = jax.lax.sort((rk_flat,), num_keys=1)[0]
-        k2 = jnp.concatenate(
-            [ks.reshape(rows, LANES),
-             jnp.full((pad_rows, LANES), KEY_POS_INF, jnp.int32)], axis=0)
-        return k2, total
-    stride = cap // LANES
-    assert cap % (tile_rows * LANES) == 0, "bucket cap must be whole tiles"
-    # pad run count to a power of two with zero-length runs
-    nruns = n_chips if n_chips & (n_chips - 1) == 0 else \
-        1 << (n_chips - 1).bit_length()
-    extra = nruns - n_chips
-    k2 = jnp.concatenate(
-        [rk_flat.reshape(rows, LANES),
-         jnp.full((extra * stride + pad_rows, LANES), KEY_POS_INF,
-                  jnp.int32)], axis=0)
-    lens = jnp.concatenate([counts.astype(jnp.int32),
-                            jnp.zeros(extra, jnp.int32)])
-    first = True
-    while nruns > 1:
-        k2, _, lens = sort_ops.merge_pass(
-            k2, None, lens, stride, tile_rows, b_asc=first,
-            interpret=interp)
-        stride *= 2
-        nruns //= 2
-        first = False
-    return k2, total
-
-
-def _overlap_receive_merge(b2, counts, n_chips: int, cap: int,
-                           tile_rows: int, interp: bool):
-    """ppermute-round exchange with merge-as-they-arrive.
-
-    Round t delivers the bucket piece from chip (me - t); every second
-    arrival immediately pairwise-merges with its predecessor while the
-    next round's permute is in flight — the data dependencies leave XLA's
-    async-collective scheduler free to overlap ICI with the merge kernels,
-    which is the TPU realization of the reference's
-    mpass_firstnumamerge_phase pulling remote runs WHILE merging them
-    (sortmergejoin_multipass.c:410-619).
-
-    Returns (acc, lens2): K/2 merged ascending runs of stride 2*cap rows
-    laid out in ``acc``, with traced lengths ``lens2``.
-    """
-    me = jax.lax.axis_index(AXIS)
-    stride = cap // LANES
-    pad_rows = tile_rows + 8
-    npairs = n_chips // 2
-    acc = jnp.full(((n_chips * stride + pad_rows), LANES), KEY_POS_INF,
-                   jnp.int32)
-    lens2 = []
-    pieceA = cntA = None
-    for t in range(n_chips):
-        if t == 0:
-            piece = jnp.take(b2, me % n_chips, axis=0)
-            cnt = jnp.take(counts, me % n_chips)
-        else:
-            perm = [(x, (x + t) % n_chips) for x in range(n_chips)]
-            dest = (me + t) % n_chips
-            piece = jax.lax.ppermute(jnp.take(b2, dest, axis=0), AXIS, perm)
-            cnt = jax.lax.ppermute(jnp.take(counts, dest), AXIS, perm)
-        if t % 2 == 0:
-            pieceA, cntA = piece, cnt
-            continue
-        # merge the completed pair on a private array so the next round's
-        # permute has no dependency on it
-        g = t // 2
-        arr = jnp.concatenate(
-            [pieceA.reshape(stride, LANES), piece.reshape(stride, LANES),
-             jnp.full((pad_rows, LANES), KEY_POS_INF, jnp.int32)], axis=0)
-        merged, _, ln = sort_ops.merge_pass(
-            arr, None, jnp.stack([cntA, cnt]), stride, tile_rows,
-            b_asc=True, interpret=interp)
-        acc = jax.lax.dynamic_update_slice(
-            acc, merged[: 2 * stride], (g * 2 * stride, 0))
-        lens2.append(ln[0])
-    return acc, jnp.stack(lens2) if npairs else jnp.zeros(0, jnp.int32)
-
-
-@functools.lru_cache(maxsize=2)
-def _count_fn(mesh: Mesh, n_chips: int, cap_r: int, cap_s: int,
-              block_rows: int, tile_rows: int, fanin: int,
-              use_pallas: bool, overlap_ok: bool, hier, interp: bool,
-              env: tuple = ()):
-    """Cached jitted shard_map pipeline for dist_mpass_join_count
-    (rebuilding it per call re-traced the whole distributed program on
-    every invocation — it distorted every timed rep)."""
-    axes = flat_axes(mesh)
-    spec = flat_spec(mesh)
-
-    def shard_fn(rk, sk, nvr, nvs):
-        rk, sk = rk[0], sk[0]
-        nvr, nvs = nvr[0], nvs[0]
-        # phase 1+2: local sort
-        r2 = _local_sorted_2d(rk, rk.shape[0], block_rows, tile_rows, fanin,
-                              use_pallas)
-        s2 = _local_sorted_2d(sk, sk.shape[0], block_rows, tile_rows, fanin,
-                              use_pallas)
-        # skew-aware equi-depth splitters (the dist_mway helper — one
-        # implementation to keep in sync, incl. its 2-D-mesh axes form)
-        bounds = _equidepth_bounds(r2, s2, nvr, nvs, n_chips, axes)
-        # exchange of contiguous sorted slices (= phase 3.1's remote pull)
-        brk, rc, ovr = _slice_buckets(r2, nvr, bounds, n_chips, cap_r)
-        bsk, sc, ovs = _slice_buckets(s2, nvs, bounds, n_chips, cap_s)
-        if overlap_ok:
-            # permute rounds with merge-as-they-arrive (phase 3.1 overlap)
-            def recv_merge(bflat, counts, cap):
-                acc, lens = _overlap_receive_merge(
-                    bflat.reshape(n_chips, cap), counts, n_chips, cap,
-                    tile_rows, interp)
-                total = jnp.sum(lens)
-                nruns = n_chips // 2
-                stride_cur = 2 * (cap // LANES)
-                first = True  # level-2 inputs are all ascending
-                while nruns > 1:
-                    acc, _, lens = sort_ops.merge_pass(
-                        acc, None, lens, stride_cur, tile_rows,
-                        b_asc=first, interpret=interp)
-                    stride_cur *= 2
-                    nruns //= 2
-                    first = False
-                return acc, total
-
-            mr2, tr = recv_merge(brk, rc, cap_r)
-            ms2, ts = recv_merge(bsk, sc, cap_s)
-        else:
-            if hier is not None:
-                # hierarchical two-stage exchange (ICI in-host, DCN across)
-                H, C = hier
-                grk = ex.exchange_hier(brk, cap_r, H, C, HOST_AXIS, AXIS)
-                gsk = ex.exchange_hier(bsk, cap_s, H, C, HOST_AXIS, AXIS)
-                grc = ex.exchange_hier(rc, 1, H, C, HOST_AXIS, AXIS)
-                gsc = ex.exchange_hier(sc, 1, H, C, HOST_AXIS, AXIS)
-            else:
-                grk = jax.lax.all_to_all(brk, AXIS, 0, 0, tiled=True)
-                gsk = jax.lax.all_to_all(bsk, AXIS, 0, 0, tiled=True)
-                grc = jax.lax.all_to_all(rc, AXIS, 0, 0, tiled=True)
-                gsc = jax.lax.all_to_all(sc, AXIS, 0, 0, tiled=True)
-            # phase 3: log-halving pairwise merge passes
-            mr2, tr = _pairwise_merge_received(grk, grc, n_chips, cap_r,
-                                               tile_rows, use_pallas, interp)
-            ms2, ts = _pairwise_merge_received(gsk, gsc, n_chips, cap_s,
-                                               tile_rows, use_pallas, interp)
-        # phase 4: fused count over the owned key range
-        stats = mergejoin.merge_join_count_fused(
-            mr2, ms2, tr, ts, tile_rows, interpret=interp)
-        return stats.reshape(1, 3), (ovr + ovs).reshape(1)
-    return jax.jit(shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(spec,) * 4,
-        out_specs=(spec, spec),
-        check_vma=False,  # pallas_call outputs carry no vma annotations
-    ))
+from .dist_mway import dist_mway_join_count
 
 
 def dist_mpass_join_count(rkeys, skeys, n_r: int, n_s: int,
-                          mesh: Optional[Mesh] = None, slack: float = 2.0,
-                          block_rows: int = 256, tile_rows: int = 128,
-                          fanin: int = 16,
-                          use_pallas: Optional[bool] = None,
-                          overlap: bool = False):
-    """Distributed m-pass equi-join match count over a 1-D chip mesh.
-
-    Returns (count, overflow) host ints; overflow triggers an auto-retry
-    with doubled slack, mirroring dist_mway.
-
-    ``overlap=True`` replaces the fused all_to_all with ppermute rounds
-    whose arriving run pairs merge while the next round circulates (the
-    exchange/merge overlap of the reference's first NUMA-merge phase);
-    requires an even chip count and the Pallas pipeline.
-    """
-    mesh = mesh or make_mesh()
-    if use_pallas is None:
-        use_pallas = _mesh_platform(mesh) == "tpu"
-    interp = _mesh_platform(mesh) != "tpu"
-    n_chips = int(np.prod(list(mesh.shape.values())))
-    hier = host_shape(mesh) if is_2d(mesh) else None
-    spec = flat_spec(mesh)
-    # overlap needs the Pallas merge kernel, a power-of-two chip count
-    # (after the receive-merge level there are n_chips/2 runs; every later
-    # halving level needs an even run count — non-pow2 even meshes would
-    # hit merge_pass's even-shape assertion at trace time), and a flat
-    # mesh (its ppermute rounds address the flat chip axis).  Never fall
-    # back silently: the caller is timing a specific algorithm.
-    overlap_ok = (overlap and use_pallas and n_chips > 1
-                  and (n_chips & (n_chips - 1)) == 0 and hier is None)
-    if overlap and not overlap_ok:
-        import sys
-        print("[WARN ] dist m-pass overlap=True requires the Pallas "
-              "pipeline, a power-of-two chip count, and a flat mesh "
-              f"(use_pallas={use_pallas}, n_chips={n_chips}, "
-              f"mesh_axes={mesh.axis_names}); running the "
-              "non-overlapped all_to_all path", file=sys.stderr)
-    shard_r = -(-n_r // n_chips)
-    shard_s = -(-n_s // n_chips)
-    tile_elems = tile_rows * LANES
-
-    cap_r = ex.bucket_cap(shard_r, n_chips, slack, tile_elems)
-    cap_s = ex.bucket_cap(shard_s, n_chips, slack, tile_elems)
-
-    rk = ex.pad_column(rkeys[:n_r], shard_r * n_chips, KEY_POS_INF)
-    sk = ex.pad_column(skeys[:n_s], shard_s * n_chips, KEY_POS_INF)
-    nv_r = ex.valid_counts(n_r, shard_r, n_chips)
-    nv_s = ex.valid_counts(n_s, shard_s, n_chips)
-
-    fn = _count_fn(mesh, n_chips, cap_r, cap_s, block_rows, tile_rows,
-                   fanin, use_pallas, overlap_ok, hier, interp,
-                   cache.prefetch_env_key())
-    sharded = NamedSharding(mesh, spec)
-    with sort_ops.force_interpret(interp):
-        stats, overflow = fn(
-            jax.device_put(rk.reshape(n_chips, shard_r), sharded),
-            jax.device_put(sk.reshape(n_chips, shard_s), sharded),
-            jax.device_put(jnp.asarray(nv_r), sharded),
-            jax.device_put(jnp.asarray(nv_s), sharded),
-        )
-    stats = np.asarray(stats, dtype=np.int64)
-    if int(stats[:, 2].sum()):
-        raise mergejoin.CountLimbOverflow(
-            "per-segment cntR*cntS >= 2^29 on some chip of the "
-            "distributed m-pass count")
-    count = int(((stats[:, 0] << 30) + stats[:, 1]).sum())
-    ov = int(np.asarray(overflow).sum())
-    if ov > 0 and slack < 16.0:
-        return dist_mpass_join_count(rkeys, skeys, n_r, n_s, mesh, slack * 2,
-                                     block_rows, tile_rows, fanin, use_pallas,
-                                     overlap)
-    return count, ov
+                          mesh: Optional[Mesh] = None, slack: float = 2.0):
+    """Distributed m-pass equi-join match count.  Returns (count,
+    overflow) host ints, like :func:`.dist_mway.dist_mway_join_count`."""
+    return dist_mway_join_count(rkeys, skeys, n_r, n_s, mesh, slack)

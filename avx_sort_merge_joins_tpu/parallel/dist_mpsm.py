@@ -1,13 +1,13 @@
-"""Distributed MPSM join (Albutiu et al. PVLDB'12) over a chip mesh.
+"""Distributed MPSM join (Albutiu et al. PVLDB'12) over a device mesh.
 
 MPSM's defining asymmetry: **R is globally range-partitioned, S is only
 sorted locally and never repartitioned** — every worker instead scans all
 workers' S runs for its own key range.  On a shared-memory NUMA machine the
-scan is a remote read; on TPU the honest realization is a ring: the
-per-chip sorted S runs circulate via ``ppermute`` for n-1 rounds, and each
-chip counts its owned R range against the run passing through — S moves
-once around the ring ((n-1)/n of |S| total ICI traffic), R never moves
-after its one range exchange, matching the paper's communication shape.
+scan is a remote read; across cards it is a ring: the per-card sorted S
+runs circulate via ``ppermute`` for n-1 rounds, and each card counts its
+owned R range against the run passing through — S moves once around the
+ring ((n-1)/n of |S| in total), R never moves after its one range
+exchange, matching the paper's communication shape.
 
 Skew: R's range splitters come from pooled equi-depth quantile samples of
 both relations (same scheme as dist_mway), so Zipf-heavy S regions spread
@@ -17,176 +17,87 @@ the matching R ranges evenly.
 from __future__ import annotations
 
 import functools
-
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops import mergejoin
-from ..ops.bitonic import KEY_POS_INF, LANES
-from ..utils import cache
+from ..ops.sort import sort_keys
+from ..types import KEY_SENTINEL
 from . import exchange as ex
-from .dist_mway import (_equidepth_bounds, _local_sorted_2d,
-                        _mesh_platform, _slice_buckets)
+from .dist_mway import _equidepth_bounds, _slice_buckets, _sort_local
 from .mesh import AXIS, is_2d, make_mesh
 
 
-@functools.lru_cache(maxsize=2)
-def _count_fn(mesh: Mesh, n_chips: int, cap_r: int, block_rows: int,
-              tile_rows: int, fanin: int, use_pallas: bool, interp: bool,
-              env: tuple = ()):
-    """Cached jitted shard_map pipeline for dist_mpsm_join_count
-    (rebuilding it per call re-traced the whole distributed program on
-    every invocation — it distorted every timed rep)."""
+@functools.lru_cache(maxsize=4)
+def _count_fn(mesh: Mesh, n_chips: int, cap_r: int):
+    """Cached jitted shard_map pipeline for dist_mpsm_join_count."""
     def shard_fn(rk, sk, nvr, nvs):
-        rk, sk = rk[0], sk[0]
         nvr, nvs = nvr[0], nvs[0]
-        # local sorts (phase 1: S runs stay local forever)
-        r2 = _local_sorted_2d(rk, rk.shape[0], block_rows, tile_rows, fanin,
-                              use_pallas)
-        s2 = _local_sorted_2d(sk, sk.shape[0], block_rows, tile_rows, fanin,
-                              use_pallas)
-        # skew-aware equi-depth splitters (the dist_mway helper — one
-        # implementation to keep in sync; mpsm meshes are flat, so the
-        # default AXIS collective spec applies)
-        bounds = _equidepth_bounds(r2, s2, nvr, nvs, n_chips)
-        me = jax.lax.axis_index(AXIS)
-        # chip d owns keys in [bounds[d], bounds[d+1]) — upper EXCLUSIVE to
-        # match _slice_buckets' R ranges exactly (last chip unbounded)
-        my_lo = jnp.stack(bounds)[me]
-        my_next = jnp.stack(bounds[1:] + [jnp.int32(2**31 - 1)])[me]
-
-        # phase 2: exchange R only (contiguous sorted slices)
-        brk, rc, ovr = _slice_buckets(r2, nvr, bounds, n_chips, cap_r)
-        grk = jax.lax.all_to_all(brk, AXIS, 0, 0, tiled=True)
-        grc = jax.lax.all_to_all(rc, AXIS, 0, 0, tiled=True)
-        # my owned R range = k-way mergeable runs; for counting, each
-        # received run can be counted independently (count is additive over
-        # R runs), so no merge is needed at all — MPSM's "no global R merge"
-        # shortcut applies to counting.
-        r_runs = grk.reshape(n_chips, cap_r)
-
-        # phase 3: ring the S runs; each round count my R runs against the
-        # S run passing through, masked to my key range
+        # phase 1: local sorts (S runs stay local forever)
+        rs, ss = _sort_local(rk[0], sk[0])
+        # phase 2: exchange R only (contiguous sorted slices), then one
+        # sort of the received runs: this card's owned R range
+        with jax.named_scope("exchange"):
+            bounds = _equidepth_bounds(rs, ss, nvr, nvs, n_chips)
+            brk, _, _, ovr = _slice_buckets(rs, nvr, bounds, n_chips, cap_r)
+            grk = jax.lax.all_to_all(brk, AXIS, 0, 0, tiled=True)
+        with jax.named_scope("merge_r"):
+            r_mine = sort_keys(grk)
+        # phase 3: ring the S runs; every S key outside the owned range
+        # finds no match in r_mine, so no range mask is needed — only the
+        # live prefix of each run counts
         perm = [(x, (x + 1) % n_chips) for x in range(n_chips)]
-
-        def count_pair(rrun, rlen, s_col, s_len):
-            r2d = jnp.concatenate(
-                [rrun.reshape(-1, LANES),
-                 jnp.full((tile_rows + 8, LANES), KEY_POS_INF, jnp.int32)],
-                axis=0)
-            stats = mergejoin.merge_join_count_fused(
-                r2d, s_col, rlen, s_len, tile_rows,
-                interpret=interp)
-            return stats
-
-        total_hi = jnp.int32(0)
-        total_lo = jnp.int32(0)
-        total_ov = jnp.int32(0)
-        s_cur = s2
-        s_cnt = nvs
+        total = None
+        s_cur, s_cnt = ss, nvs
         for rnd in range(n_chips):
-            # mask the passing S run to my key range (S runs are sorted, so
-            # range masking keeps a contiguous prefix after re-padding)
-            sflat_cur = s_cur.reshape(-1)
-            sidx = jnp.arange(sflat_cur.shape[0], dtype=jnp.int32)
-            in_range = (sflat_cur >= my_lo) & (sflat_cur < my_next) & \
-                (sidx < s_cnt)
-            n_in = jnp.sum(in_range.astype(jnp.int32))
-            start = jnp.sum((jnp.where(sidx < s_cnt, sflat_cur,
-                                       KEY_POS_INF) < my_lo)
-                            .astype(jnp.int32))
-            # contiguous slice of the sorted run
-            padded = jnp.concatenate(
-                [sflat_cur, jnp.full((sflat_cur.shape[0],), KEY_POS_INF,
-                                     jnp.int32)])
-            s_win = jax.lax.dynamic_slice(padded, (start,),
-                                          (sflat_cur.shape[0],))
-            s_col = jnp.concatenate(
-                [s_win.reshape(-1, LANES),
-                 jnp.full((tile_rows + 8, LANES), KEY_POS_INF, jnp.int32)],
-                axis=0)
-            def src_body(src, carry):
-                hi, lo, ov = carry
-                rrun = jax.lax.dynamic_index_in_dim(r_runs, src, 0,
-                                                    keepdims=False)
-                stats = count_pair(rrun, grc[src], s_col, n_in)
-                lo = lo + stats[0, 1]
-                hi = hi + stats[0, 0] + (lo >> 30)
-                ov = ov | stats[0, 2]
-                return hi, lo & ((1 << 30) - 1), ov
-
-            # fori keeps ONE count-kernel instance per round in the graph
-            # (an unrolled n_chips^2 of them overflows the XLA CPU
-            # compiler's stack on wide meshes)
-            total_hi, total_lo, total_ov = jax.lax.fori_loop(
-                0, n_chips, src_body, (total_hi, total_lo, total_ov))
+            with jax.named_scope("count"):
+                c = mergejoin.count_sorted(r_mine, s_cur, s_cnt)
+            total = c if total is None else total + c
             if rnd != n_chips - 1:
-                s_cur = jax.lax.ppermute(s_cur, AXIS, perm)
-                s_cnt = jax.lax.ppermute(s_cnt, AXIS, perm)
-        out = jnp.stack([total_hi, total_lo, total_ov]).reshape(1, 3)
-        return out, ovr.reshape(1)
-
+                with jax.named_scope("ring"):
+                    s_cur = jax.lax.ppermute(s_cur, AXIS, perm)
+                    s_cnt = jax.lax.ppermute(s_cnt, AXIS, perm)
+        return total.reshape(1), ovr.reshape(1)
 
     return jax.jit(shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P(AXIS),) * 4,
         out_specs=(P(AXIS), P(AXIS)),
-        check_vma=False,
     ))
 
 
 def dist_mpsm_join_count(rkeys, skeys, n_r: int, n_s: int,
-                         mesh: Optional[Mesh] = None, slack: float = 2.0,
-                         block_rows: int = 256, tile_rows: int = 128,
-                         fanin: int = 16,
-                         use_pallas: Optional[bool] = None):
+                         mesh: Optional[Mesh] = None, slack: float = 2.0):
     """MPSM equi-join match count.  Returns (count, overflow) host ints."""
     mesh = mesh or make_mesh()
     if is_2d(mesh):
         raise ValueError(
             "dist_mpsm_join_count requires a flat mesh (the S ring and R "
             "range exchange address only the chip axis)")
-    if use_pallas is None:
-        use_pallas = _mesh_platform(mesh) == "tpu"
-    # pallas kernels interpret off-TPU regardless of pipeline choice
-    interp = _mesh_platform(mesh) != "tpu"
     n_chips = int(np.prod(list(mesh.shape.values())))
     shard_r = -(-n_r // n_chips)
     shard_s = -(-n_s // n_chips)
-    tile_elems = tile_rows * LANES
-    cap_r = ex.bucket_cap(shard_r, n_chips, slack, tile_elems)
+    cap_r = ex.bucket_cap(shard_r, n_chips, slack, 128)
 
-    rk = ex.pad_column(rkeys[:n_r], shard_r * n_chips, KEY_POS_INF)
-    sk = ex.pad_column(skeys[:n_s], shard_s * n_chips, KEY_POS_INF)
+    rk = ex.pad_column(rkeys[:n_r], shard_r * n_chips, KEY_SENTINEL)
+    sk = ex.pad_column(skeys[:n_s], shard_s * n_chips, KEY_SENTINEL)
     nv_r = ex.valid_counts(n_r, shard_r, n_chips)
     nv_s = ex.valid_counts(n_s, shard_s, n_chips)
 
     sharded = NamedSharding(mesh, P(AXIS))
-    fn = _count_fn(mesh, n_chips, cap_r, block_rows, tile_rows, fanin,
-                   use_pallas, interp, cache.prefetch_env_key())
-    from ..ops import sort as sort_ops
-    with sort_ops.force_interpret(interp):
-        stats, overflow = fn(
-            jax.device_put(rk.reshape(n_chips, shard_r), sharded),
-            jax.device_put(sk.reshape(n_chips, shard_s), sharded),
-            jax.device_put(jnp.asarray(nv_r), sharded),
-            jax.device_put(jnp.asarray(nv_s), sharded),
-        )
-    stats = np.asarray(stats, dtype=np.int64)
-    if int(stats[:, 2].sum()):
-        raise mergejoin.CountLimbOverflow(
-            "per-segment cntR*cntS >= 2^29 on some chip of the "
-            "distributed mpsm count")
-    count = int(((stats[:, 0] << 30) + stats[:, 1]).sum())
+    counts, overflow = _count_fn(mesh, n_chips, cap_r)(
+        jax.device_put(rk.reshape(n_chips, shard_r), sharded),
+        jax.device_put(sk.reshape(n_chips, shard_s), sharded),
+        jax.device_put(jnp.asarray(nv_r), sharded),
+        jax.device_put(jnp.asarray(nv_s), sharded),
+    )
     ov = int(np.asarray(overflow).sum())
     if ov > 0 and slack < 16.0:
         # extreme skew overflowed a bucket: retry with doubled capacity
-        # (the reference's fixed RELATION_PADDING has no such safety net)
-        return dist_mpsm_join_count(rkeys, skeys, n_r, n_s, mesh, slack * 2,
-                  block_rows, tile_rows, fanin, use_pallas)
-    return count, ov
+        return dist_mpsm_join_count(rkeys, skeys, n_r, n_s, mesh, slack * 2)
+    return int(np.asarray(counts).sum()), ov

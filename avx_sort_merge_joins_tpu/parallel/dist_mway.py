@@ -1,279 +1,111 @@
 """Distributed m-way join: sort-first exchange of sorted runs.
 
-The faithful multi-chip realization of the reference's m-way phases
-(reference: src/joins/sortmergejoin_multiway.c): each thread sorts its
-local partitions, then every thread gathers one partition's sorted runs
-from ALL threads (the cross-NUMA remote reads of threadrelchunks,
-:504-518) and multi-way-merges them through the cache-resident FIFO tree.
-On TPU:
+The multi-card realization of the reference's m-way phases (reference:
+src/joins/sortmergejoin_multiway.c): each thread sorts its local
+partitions, then every thread gathers one partition's sorted runs from ALL
+threads (the cross-NUMA remote reads of threadrelchunks, :504-518) and
+merges them.  Here:
 
-  phase 1+2  — per-chip keys-only Pallas multiway_sort of the local shard
-               (partition+sort of the reference collapse: the sorted run
-               IS range-partitionable by slicing),
-  exchange   — every chip's contribution to chip d is one CONTIGUOUS slice
-               of its sorted run (range splitters from pmin/pmax), so the
-               exchange is dynamic-slice → pad → all_to_all over ICI — no
-               scatter anywhere,
-  phase 3    — per-chip k-way FIFO-tree merge of the n_chips received
-               sorted runs (one pass — the avx_multiway_merge analog),
-  phase 4    — fused zero-write merge-join count; global count = host sum
-               of per-chip counts (disjoint key ranges).
+  phase 1+2  — per-card ``lax.sort`` of the local shard (partition+sort of
+               the reference collapse: the sorted run IS
+               range-partitionable by slicing),
+  exchange   — every card's contribution to card d is one CONTIGUOUS slice
+               of its sorted run (equi-depth range splitters), so the
+               exchange is dynamic-slice → pad → ``all_to_all`` under
+               ``shard_map``, which XLA hands to the collective library,
+  phase 3    — per-card re-sort of the n_cards received runs (the
+               reference's multiway merge; a receiver k-way merge is a
+               later optimization),
+  phase 4    — plain count over the owned key range; the global count is
+               the host sum of per-card counts (disjoint key ranges).
 
-Skew note: equal-range splitters assume roughly uniform keys (the
-reference's radix partition makes the same assumption); the padded bucket
-capacity carries a slack factor and overflow is detected, never silent.
+Skew note: the splitters are pooled quantiles of both relations, so Zipf
+foreign keys balance; the padded bucket capacity carries a slack factor
+and overflow is detected and retried with more slack, never silent.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
+from jax.sharding import Mesh, NamedSharding
 
-from ..ops import mergejoin, multiwaymerge as mw, sort as sort_ops
-from ..ops.bitonic import KEY_POS_INF, LANES
-from ..utils import cache  # noqa: E402
-from ..types import NumaStrategy
+from ..ops import mergejoin
+from ..ops.sort import sort_keys
+from ..types import KEY_SENTINEL, NumaStrategy
 from . import exchange as ex
-from .exchange import exchange_hier, valid_counts as exchange_valid_counts
+from .exchange import exchange_hier
 from .mesh import (AXIS, HOST_AXIS, chips_per_host_of, flat_axes, flat_spec,
                    host_shape, is_2d, make_mesh, shuffle_order)
 
 
-def _mesh_platform(mesh):
-    """Platform of the mesh's devices (may differ from the default
-    backend, e.g. a CPU dryrun mesh under a TPU default)."""
-    return np.asarray(mesh.devices).flat[0].platform
+def _bucket_starts(ks, bounds, n_valid):
+    """Start of each destination's slice in a sorted column: the rank of
+    every splitter (#keys < bound), then the live length at the end."""
+    inner = jnp.searchsorted(ks, jnp.stack(bounds[1:]), side="left") \
+        if len(bounds) > 1 else jnp.zeros((0,), jnp.int32)
+    inner = jnp.minimum(inner.astype(jnp.int32), n_valid)
+    return jnp.concatenate([jnp.zeros((1,), jnp.int32), inner,
+                            n_valid.astype(jnp.int32).reshape(1)])
 
 
-def _local_sorted_2d(keys, n_cap: int, block_rows: int, tile_rows: int,
-                     fanin: int, use_pallas: bool):
-    """Sort a local shard (padded with +inf) ascending; returns the padded
-    (rows,128) layout."""
-    if use_pallas:
-        k2, _ = mw.multiway_sort(keys, None, n_cap, block_rows, tile_rows,
-                                 fanin, return_2d=True)
-        return k2
-    ks = jax.lax.sort((keys[:n_cap],), num_keys=1)[0]
-    rows = sort_ops.padded_rows(n_cap, block_rows, tile_rows)
-    kf = jnp.full((rows * LANES,), KEY_POS_INF, jnp.int32)
-    kf = kf.at[:n_cap].set(ks)
-    return kf.reshape(rows, LANES)
+def _slice_buckets(ks, n_valid, bounds, n_chips: int, cap: int, vs=None):
+    """Cut a sorted column (and optionally a value column riding with it)
+    into per-destination contiguous buckets of ``cap`` slots.
 
-
-def _slice_buckets(k2, n_valid, bounds, n_chips: int, cap: int):
-    """Cut a sorted padded column into per-destination contiguous buckets.
-
-    bucket d = keys in [bounds[d], bounds[d+1]) — a contiguous slice of the
-    sorted run located with vectorized rank counts (no gathers/scatters).
-    Returns ((n_chips*cap,) padded keys, (n_chips,) counts, overflow).
+    Bucket d = keys in [bounds[d], bounds[d+1]), padded with KEY_SENTINEL
+    (values with 0).  Returns (bkeys, bvalues_or_None, counts, overflow)
+    in the (n_chips*cap,) layout the exchange consumes.
     """
-    flat = k2.reshape(-1)
-    idx = jnp.arange(flat.shape[0], dtype=jnp.int32)
-    valid = idx < n_valid
-    kv = jnp.where(valid, flat, KEY_POS_INF)
+    idx = jnp.arange(ks.shape[0], dtype=jnp.int32)
+    kv = jnp.where(idx < n_valid, ks, KEY_SENTINEL)
     # tail padding so dynamic_slice never clamps (start <= n_valid <= size)
-    kv = jnp.concatenate([kv, jnp.full((cap,), KEY_POS_INF, jnp.int32)])
-
-    # rank of each splitter = #keys < bound  (O(n_chips) masked reductions)
-    starts = [jnp.int32(0)]
-    for d in range(1, n_chips):
-        starts.append(jnp.sum((kv < bounds[d]).astype(jnp.int32)))
-    starts.append(n_valid.astype(jnp.int32))
-
-    bk = jnp.full((n_chips, cap), KEY_POS_INF, jnp.int32)
-    counts = []
-    overflow = jnp.int32(0)
-    for d in range(n_chips):
-        ln = starts[d + 1] - starts[d]
-        overflow = overflow + jnp.maximum(ln - cap, 0)
-        sl = jax.lax.dynamic_slice(kv, (starts[d],), (cap,))
-        lane = jnp.arange(cap, dtype=jnp.int32)
-        sl = jnp.where(lane < ln, sl, KEY_POS_INF)
-        bk = bk.at[d].set(sl)
-        counts.append(jnp.minimum(ln, cap))
-    return bk.reshape(-1), jnp.stack(counts), overflow
-
-
-def _local_sorted_pair_2d(keys, payloads, n_cap: int, block_rows: int,
-                          tile_rows: int, fanin: int, use_pallas: bool):
-    """Sort a local (key, payload) shard ascending by (key, payload);
-    returns the padded (rows,128) pair layout."""
-    if use_pallas:
-        return mw.multiway_sort(keys, payloads, n_cap, block_rows,
-                                tile_rows, fanin, return_2d=True)
-    ks, ps = jax.lax.sort((keys[:n_cap], payloads[:n_cap]), num_keys=2)
-    rows = sort_ops.padded_rows(n_cap, block_rows, tile_rows)
-    kf = jnp.full((rows * LANES,), KEY_POS_INF, jnp.int32).at[:n_cap].set(ks)
-    pf = jnp.full((rows * LANES,), KEY_POS_INF, jnp.int32).at[:n_cap].set(ps)
-    return kf.reshape(rows, LANES), pf.reshape(rows, LANES)
-
-
-def _slice_buckets_pair(k2, p2, n_valid, bounds, n_chips: int, cap: int):
-    """Payload-carrying :func:`_slice_buckets`: cut BOTH sorted columns at
-    the same splitter ranks.  Returns (bkeys, bpayloads, counts, overflow)
-    in the padded (n_chips*cap,) bucket layout."""
-    kflat = k2.reshape(-1)
-    pflat = p2.reshape(-1)
-    idx = jnp.arange(kflat.shape[0], dtype=jnp.int32)
-    valid = idx < n_valid
-    kv = jnp.where(valid, kflat, KEY_POS_INF)
-    pv = jnp.where(valid, pflat, 0)
-    kv = jnp.concatenate([kv, jnp.full((cap,), KEY_POS_INF, jnp.int32)])
-    pv = jnp.concatenate([pv, jnp.zeros((cap,), jnp.int32)])
-
-    starts = [jnp.int32(0)]
-    for d in range(1, n_chips):
-        starts.append(jnp.sum((kv < bounds[d]).astype(jnp.int32)))
-    starts.append(n_valid.astype(jnp.int32))
-
-    bk = jnp.full((n_chips, cap), KEY_POS_INF, jnp.int32)
-    bp = jnp.zeros((n_chips, cap), jnp.int32)
-    counts = []
-    overflow = jnp.int32(0)
+    kv = jnp.concatenate([kv, jnp.full((cap,), KEY_SENTINEL, jnp.int32)])
+    if vs is not None:
+        vv = jnp.concatenate([jnp.where(idx < n_valid, vs, 0),
+                              jnp.zeros((cap,), vs.dtype)])
+    starts = _bucket_starts(kv, bounds, n_valid)
     lane = jnp.arange(cap, dtype=jnp.int32)
+    bk, bv, counts = [], [], []
+    overflow = jnp.int32(0)
     for d in range(n_chips):
         ln = starts[d + 1] - starts[d]
         overflow = overflow + jnp.maximum(ln - cap, 0)
-        slk = jax.lax.dynamic_slice(kv, (starts[d],), (cap,))
-        slp = jax.lax.dynamic_slice(pv, (starts[d],), (cap,))
-        bk = bk.at[d].set(jnp.where(lane < ln, slk, KEY_POS_INF))
-        bp = bp.at[d].set(jnp.where(lane < ln, slp, 0))
+        keep = lane < ln
+        bk.append(jnp.where(keep, jax.lax.dynamic_slice(kv, (starts[d],),
+                                                        (cap,)), KEY_SENTINEL))
+        if vs is not None:
+            bv.append(jnp.where(keep, jax.lax.dynamic_slice(
+                vv, (starts[d],), (cap,)), 0))
         counts.append(jnp.minimum(ln, cap))
-    return bk.reshape(-1), bp.reshape(-1), jnp.stack(counts), overflow
+    return (jnp.concatenate(bk), jnp.concatenate(bv) if vs is not None
+            else None, jnp.stack(counts), overflow)
 
 
-def _merge_received_pair(rk_flat, rp_flat, counts, n_chips: int, cap: int,
-                         tile_rows: int, fanin: int, use_pallas: bool):
-    """K-way merge received (key, payload) runs into one sorted padded
-    column pair.  Returns (merged_k2, merged_p2, total)."""
-    total = jnp.sum(counts)
-    if not use_pallas:
-        ks, ps = jax.lax.sort((rk_flat, rp_flat), num_keys=2)
-        rows = rk_flat.shape[0] // LANES
-        pad_rows = tile_rows + 8
-        pad = jnp.full((pad_rows, LANES), KEY_POS_INF, jnp.int32)
-        return (jnp.concatenate([ks.reshape(rows, LANES), pad], axis=0),
-                jnp.concatenate([ps.reshape(rows, LANES), pad], axis=0),
-                total)
-    stride = cap // LANES
-    assert cap % (tile_rows * LANES) == 0, "bucket cap must be whole tiles"
-    rows = n_chips * stride
-    pad_rows = tile_rows + 8
-    nruns = n_chips if n_chips & (n_chips - 1) == 0 else \
-        1 << (n_chips - 1).bit_length()
-    extra = nruns - n_chips
-    pad = jnp.full((extra * stride + pad_rows, LANES), KEY_POS_INF,
-                   jnp.int32)
-    k2 = jnp.concatenate([rk_flat.reshape(rows, LANES), pad], axis=0)
-    p2 = jnp.concatenate([rp_flat.reshape(rows, LANES), pad], axis=0)
-    lens = jnp.concatenate([counts.astype(jnp.int32),
-                            jnp.zeros(extra, jnp.int32)])
-    while nruns > 1:
-        w = min(max(2, fanin), nruns)
-        k2, p2, lens = mw.multiway_merge(k2, p2, lens, stride, w, tile_rows)
-        stride *= w
-        nruns //= w
-    return k2, p2, total
-
-
-def _merge_received_gated(rk_flat, counts, n_chips: int, cap: int,
-                          tile_rows: int, pull_rate: int, interp: bool):
-    """K-way merge of received runs through the CHUNK-GATED receiver — the
-    arrival-emulated remote-pull merge (remote_fifo.chunk_gated_merge; the
-    reference's readmerge-through-remote-reads,
-    avx_multiwaymerge.c:605-728).  The landing buffer is the bulk
-    exchange's output; an arrival-round schedule shaped like
-    push_schedule's chunk-major walk gates each leaf, so the tree merges
-    exactly as it would under the real chunked push.  Returns
-    (merged2d, total, violation) — violation must stay 0."""
-    from . import remote_fifo as rf
-
-    total = jnp.sum(counts)
-    stride = cap // LANES
-    assert cap % (tile_rows * LANES) == 0
-    rows = n_chips * stride
-    pad_rows = tile_rows + 8
-    nruns = n_chips if n_chips & (n_chips - 1) == 0 else \
-        1 << (n_chips - 1).bit_length()
-    extra = nruns - n_chips
-    k2 = jnp.concatenate(
-        [rk_flat.reshape(rows, LANES),
-         jnp.full((extra * stride + pad_rows, LANES), KEY_POS_INF,
-                  jnp.int32)], axis=0)
-    lens = jnp.concatenate([counts.astype(jnp.int32),
-                            jnp.zeros(extra, jnp.int32)])
-    chunk_elems = rf.pick_chunk_elems(cap, tile_rows * LANES, nruns)
-    arrive = rf.arrival_schedule(nruns, cap // chunk_elems, rate=pull_rate)
-    merged, _waited, viol = rf.chunk_gated_merge(
-        k2, lens, stride, chunk_elems, arrive, tile_rows,
-        interpret=interp)
-    return merged, total, viol
-
-
-def _merge_received(rk_flat, counts, n_chips: int, cap: int,
-                    tile_rows: int, fanin: int, use_pallas: bool):
-    """K-way merge the received sorted runs into one padded sorted column.
-    Returns (merged2d, total)."""
-    total = jnp.sum(counts)
-    if not use_pallas:
-        ks = jax.lax.sort((rk_flat,), num_keys=1)[0]
-        rows = rk_flat.shape[0] // LANES
-        pad_rows = tile_rows + 8
-        k2 = jnp.concatenate(
-            [ks.reshape(rows, LANES),
-             jnp.full((pad_rows, LANES), KEY_POS_INF, jnp.int32)], axis=0)
-        return k2, total
-    stride = cap // LANES
-    assert cap % (tile_rows * LANES) == 0, "bucket cap must be whole tiles"
-    rows = n_chips * stride
-    pad_rows = tile_rows + 8
-    # pad run count to a power of two with empty runs
-    nruns = n_chips if n_chips & (n_chips - 1) == 0 else \
-        1 << (n_chips - 1).bit_length()
-    extra = nruns - n_chips
-    k2 = jnp.concatenate(
-        [rk_flat.reshape(rows, LANES),
-         jnp.full((extra * stride + pad_rows, LANES), KEY_POS_INF,
-                  jnp.int32)], axis=0)
-    lens = jnp.concatenate([counts.astype(jnp.int32),
-                            jnp.zeros(extra, jnp.int32)])
-    while nruns > 1:
-        w = min(max(2, fanin), nruns)
-        k2, _, lens = mw.multiway_merge(k2, None, lens, stride, w, tile_rows)
-        stride *= w
-        nruns //= w
-    return k2, total
-
-
-def _equidepth_bounds(r2, s2, nvr, nvs, n_chips: int, axes=AXIS):
-    """Skew-aware equi-depth splitters: each chip contributes local
+def _equidepth_bounds(rs, ss, nvr, nvs, n_chips: int, axes=AXIS):
+    """Skew-aware equi-depth splitters: each card contributes local
     quantiles of its sorted runs; the pooled, sorted samples yield
-    balanced bounds even under Zipf skew — the TPU answer to the
-    reference's uniform radix-bit assumption (heavy single keys still
-    land whole on one chip; the slack factor + overflow check guard).
+    balanced bounds even under Zipf skew (heavy single keys still land
+    whole on one card; the slack factor + overflow check guard).
     ``axes`` is the flat collective spec (axis name, or the
     ('host','chip') tuple on hierarchical meshes)."""
-    nq = 16  # quantiles per relation per chip
-    rflat = r2.reshape(-1)
-    sflat = s2.reshape(-1)
+    nq = 16  # quantiles per relation per card
     qs = []
     for j in range(nq):
-        # divide BEFORE multiplying: (nvr * j) wraps int32 for shards
-        # >= ~143M (nvr*15 >= 2^31 — the workload-A 200M/chip tier), and
-        # dynamic_slice wraps negative starts, silently skewing every
-        # splitter.  (nvr // nq) * j stays < nvr < 2^31 for all j < nq.
+        # divide BEFORE multiplying: nvr * j wraps int32 for shards
+        # >= ~143M, and dynamic_slice wraps negative starts
         pos_r = jnp.minimum((nvr // nq) * j, jnp.maximum(nvr - 1, 0))
         pos_s = jnp.minimum((nvs // nq) * j, jnp.maximum(nvs - 1, 0))
-        qs.append(jax.lax.dynamic_slice(rflat, (pos_r,), (1,)))
-        qs.append(jax.lax.dynamic_slice(sflat, (pos_s,), (1,)))
+        qs.append(jax.lax.dynamic_slice(rs, (pos_r,), (1,)))
+        qs.append(jax.lax.dynamic_slice(ss, (pos_s,), (1,)))
     samples = jax.lax.all_gather(jnp.concatenate(qs), axes).reshape(-1)
-    samples = jax.lax.sort((samples,), num_keys=1)[0]
+    samples = sort_keys(samples)
     ns = samples.shape[0]
     bounds = [jnp.int32(-(2**31) + 1)]
     for d in range(1, n_chips):
@@ -282,19 +114,16 @@ def _equidepth_bounds(r2, s2, nvr, nvs, n_chips: int, axes=AXIS):
 
 
 def _exchange(bflat, n_chips: int, cap: int, schedule, hier=None):
-    """Deliver bucket d of every chip to chip d.
+    """Deliver bucket d of every card to card d.
 
     ``schedule=None`` uses one fused all_to_all; otherwise it is a host
     list of rotation offsets (from :func:`..parallel.mesh.shuffle_order` —
     the NEXT/RING/RANDOM orders of numa_shuffle.c:55-85) realized as
-    collective_permute rounds, which XLA's scheduler can overlap with
-    surrounding compute (the ICI analog of the reference overlapping
-    remote reads with merging).
+    collective_permute rounds.
 
     ``hier=(n_hosts, chips_per_host)`` routes through the two-stage
-    hierarchical exchange of a 2-D ('host','chip') mesh — all_to_all over
-    ICI within the host, then the DCN host tier (with ``schedule``
-    applied at the host tier as permute rounds).
+    exchange of a 2-D ('host','chip') mesh (with ``schedule`` applied at
+    the host tier as permute rounds).
     """
     if hier is not None:
         H, C = hier
@@ -305,476 +134,230 @@ def _exchange(bflat, n_chips: int, cap: int, schedule, hier=None):
     b2 = bflat.reshape(n_chips, cap)
     me = jax.lax.axis_index(AXIS)
     out = jnp.zeros_like(b2)
-    naxis = n_chips
     for off in schedule:
         off = int(off)
         if off == 0:
-            # own bucket stays local
-            piece = jnp.take(b2, me % n_chips, axis=0,
-                             indices_are_sorted=False)
+            piece = jnp.take(b2, me % n_chips, axis=0)  # own bucket stays
             src = me
         else:
-            # chip x sends bucket[(x+off) mod n] to chip (x+off) mod n
-            perm = [(x, (x + off) % naxis) for x in range(naxis)]
-            dest = (me + off) % n_chips
-            piece = jnp.take(b2, dest, axis=0)
-            piece = jax.lax.ppermute(piece, AXIS, perm)
+            # card x sends bucket[(x+off) mod n] to card (x+off) mod n
+            perm = [(x, (x + off) % n_chips) for x in range(n_chips)]
+            piece = jax.lax.ppermute(
+                jnp.take(b2, (me + off) % n_chips, axis=0), AXIS, perm)
             src = (me - off) % n_chips
         out = jax.lax.dynamic_update_slice(out, piece[None, :],
                                            (src, jnp.int32(0)))
     return out.reshape(-1)
 
 
-def _overlap_receive_groups(b2, counts, n_chips: int, cap: int,
-                            tile_rows: int, fanin: int, ngroups: int):
-    """ppermute-round run delivery with GROUP k-way merges as they fill.
+def _exchange_counts(counts, n_chips: int, hier):
+    if hier is not None:
+        return _exchange(counts, n_chips, 1, None, hier)
+    return jax.lax.all_to_all(counts, AXIS, 0, 0, tiled=True)
 
-    Round t delivers the bucket run from chip (me - t).  Runs are grouped
-    by ARRIVAL order into ``ngroups`` groups of n_chips/ngroups runs; the
-    moment a group's last run lands, its fanin-g multiway merge fires —
-    its inputs do not depend on later rounds, so XLA's async-collective
-    scheduler is free to run the merge while the next rounds' permutes
-    are in flight.  This is the m-way realization of the reference's
-    merge-remote-while-reading phase (sortmergejoin_multiway.c:494-518
-    gathers runs in shuffle order and merges THROUGH the read): the ICI
-    exchange hides behind the early groups' merges, at the cost of one
-    extra k-way pass (groups → final) over the data.
 
-    Returns (group_runs_2d, group_lens): ngroups ascending runs of stride
-    n_chips//ngroups * cap laid out consecutively, ready for the final
-    k-way merge.
-    """
-    me = jax.lax.axis_index(AXIS)
-    stride = cap // LANES
-    pad_rows = tile_rows + 8
-    per_group = n_chips // ngroups
-    acc = jnp.full((n_chips * stride + pad_rows, LANES), KEY_POS_INF,
-                   jnp.int32)
-    glens = []
-    pieces, cnts = [], []
-    for t in range(n_chips):
-        if t == 0:
-            piece = jnp.take(b2, me % n_chips, axis=0)
-            cnt = jnp.take(counts, me % n_chips)
+def _sort_local(rk, sk):
+    with jax.named_scope("sort_r"):
+        rs = sort_keys(rk)
+    with jax.named_scope("sort_s"):
+        ss = sort_keys(sk)
+    return rs, ss
+
+
+def _exchange_and_merge(rs, ss, nvr, nvs, n_chips, cap_r, cap_s, axes,
+                        schedule, hier):
+    """Splitters → bucket slices → exchange → re-sort of the received
+    runs.  Returns (merged R, merged S, live S count, overflow)."""
+    with jax.named_scope("exchange"):
+        bounds = _equidepth_bounds(rs, ss, nvr, nvs, n_chips, axes)
+        brk, _, _, ovr = _slice_buckets(rs, nvr, bounds, n_chips, cap_r)
+        bsk, _, sc, ovs = _slice_buckets(ss, nvs, bounds, n_chips, cap_s)
+        grk = _exchange(brk, n_chips, cap_r, schedule, hier)
+        gsk = _exchange(bsk, n_chips, cap_s, schedule, hier)
+        gsc = _exchange_counts(sc, n_chips, hier)
+    # pads are KEY_SENTINEL, so the live keys sort to the front
+    with jax.named_scope("merge_r"):
+        mr = sort_keys(grk)
+    with jax.named_scope("merge_s"):
+        ms = sort_keys(gsk)
+    return mr, ms, jnp.sum(gsc), ovr + ovs
+
+
+def _count_owned(mr, ms, ts):
+    with jax.named_scope("count"):
+        return mergejoin.count_sorted(mr, ms, ts)
+
+
+class _Plan:
+    """Static layout of one distributed call: mesh shape, exchange
+    schedule, bucket capacities and the sharded inputs."""
+
+    def __init__(self, rkeys, skeys, n_r, n_s, mesh, slack, numa_strategy,
+                 pre_sharded):
+        self.mesh = mesh
+        self.n_chips = int(np.prod(list(mesh.shape.values())))
+        self.hier = host_shape(mesh) if is_2d(mesh) else None
+        self.axes = flat_axes(mesh)
+        self.spec = flat_spec(mesh)
+        self.schedule = _schedule(mesh, self.n_chips, self.hier,
+                                  numa_strategy)
+        shard_r = -(-n_r // self.n_chips)
+        shard_s = -(-n_s // self.n_chips)
+        self.cap_r = ex.bucket_cap(shard_r, self.n_chips, slack, 128)
+        self.cap_s = ex.bucket_cap(shard_s, self.n_chips, slack, 128)
+        sharded = NamedSharding(mesh, self.spec)
+        if pre_sharded:
+            assert rkeys.shape == (self.n_chips, shard_r), rkeys.shape
+            assert skeys.shape == (self.n_chips, shard_s), skeys.shape
+            self.rk, self.sk = rkeys, skeys
         else:
-            perm = [(x, (x + t) % n_chips) for x in range(n_chips)]
-            dest = (me + t) % n_chips
-            piece = jax.lax.ppermute(jnp.take(b2, dest, axis=0), AXIS, perm)
-            cnt = jax.lax.ppermute(jnp.take(counts, dest), AXIS, perm)
-        pieces.append(piece)
-        cnts.append(cnt)
-        if len(pieces) == per_group:
-            # group complete: k-way merge it on a private region so later
-            # rounds carry no dependency on the merge
-            g = t // per_group
-            garr = jnp.concatenate(
-                [p.reshape(stride, LANES) for p in pieces] +
-                [jnp.full((pad_rows, LANES), KEY_POS_INF, jnp.int32)],
-                axis=0)
-            lens = jnp.stack(cnts)
-            st = stride
-            nruns = per_group
-            while nruns > 1:
-                w = min(max(2, fanin), nruns)
-                garr, _, lens = mw.multiway_merge(garr, None, lens, st, w,
-                                                  tile_rows)
-                st *= w
-                nruns = -(-nruns // w)
-            acc = jax.lax.dynamic_update_slice(
-                acc, garr[: per_group * stride],
-                (g * per_group * stride, 0))
-            glens.append(lens[0])
-            pieces, cnts = [], []
-    return acc, jnp.stack(glens)
+            self.rk = jax.device_put(ex.pad_column(
+                rkeys[:n_r], shard_r * self.n_chips, KEY_SENTINEL).reshape(
+                    self.n_chips, shard_r), sharded)
+            self.sk = jax.device_put(ex.pad_column(
+                skeys[:n_s], shard_s * self.n_chips, KEY_SENTINEL).reshape(
+                    self.n_chips, shard_s), sharded)
+        self.nvr = jax.device_put(jnp.asarray(
+            ex.valid_counts(n_r, shard_r, self.n_chips)), sharded)
+        self.nvs = jax.device_put(jnp.asarray(
+            ex.valid_counts(n_s, shard_s, self.n_chips)), sharded)
+
+    @property
+    def key(self):
+        return (self.mesh, self.n_chips, self.cap_r, self.cap_s,
+                self.schedule, self.hier)
 
 
-@functools.lru_cache(maxsize=2)
-def _count_fn(mesh: Mesh, n_chips: int, cap_r: int, cap_s: int,
-              block_rows: int, tile_rows: int, fanin: int,
-              use_pallas: bool, overlap_ok: bool, schedule, hier,
-              interp: bool, remote_pull: Optional[str] = None,
-              pull_rate: int = 1, env: tuple = ()):
-    """Cached jitted shard_map pipeline for :func:`dist_mway_join_count`.
+def _schedule(mesh, n_chips, hier, numa_strategy):
+    """Exchange schedule as a hashable tuple of offsets, or None for the
+    one fused all_to_all."""
+    if hier is not None:
+        # hierarchical mesh: the shuffle knob schedules the host tier
+        if numa_strategy is None:
+            return None
+        return tuple(shuffle_order(numa_strategy, hier[0], 1).tolist())
+    if numa_strategy is None:
+        return None
+    if numa_strategy == NumaStrategy.NEXT:
+        return tuple(range(n_chips))
+    # RING strides by the mesh's host granularity (the reference derives
+    # threads-per-region from libnuma, numa_shuffle.c:80)
+    return tuple(shuffle_order(numa_strategy, n_chips,
+                               chips_per_host_of(mesh)).tolist())
 
-    Building this inside the public function made every call re-trace the
-    whole distributed program (seconds of host time per rep — it distorted
-    every scalebench efficiency row); the cache keys on the mesh plus all
-    static layout parameters.  ``schedule`` is a tuple (or None) so the
-    key is hashable."""
+
+def _smap(mesh, spec, f, n_in, n_out):
+    return jax.jit(shard_map(
+        f, mesh=mesh, in_specs=(spec,) * n_in,
+        out_specs=tuple([spec] * n_out) if n_out > 1 else spec))
+
+
+@functools.lru_cache(maxsize=4)
+def _count_fn(mesh: Mesh, n_chips: int, cap_r: int, cap_s: int, schedule,
+              hier):
+    """Cached jitted shard_map pipeline for :func:`dist_mway_join_count`
+    (rebuilding it per call re-traces the whole distributed program)."""
     axes = flat_axes(mesh)
-    spec = flat_spec(mesh)
-    schedule = list(schedule) if schedule is not None else None
 
     def shard_fn(rk, sk, nvr, nvs):
-        rk, sk = rk[0], sk[0]
-        nvr, nvs = nvr[0], nvs[0]
-        # phase 1+2: local sort (pads sort to the +inf end)
-        r2 = _local_sorted_2d(rk, rk.shape[0], block_rows, tile_rows, fanin,
-                              use_pallas)
-        s2 = _local_sorted_2d(sk, sk.shape[0], block_rows, tile_rows, fanin,
-                              use_pallas)
-        bounds = _equidepth_bounds(r2, s2, nvr, nvs, n_chips, axes)
-        # exchange of contiguous sorted slices
-        brk, rc, ovr = _slice_buckets(r2, nvr, bounds, n_chips, cap_r)
-        bsk, sc, ovs = _slice_buckets(s2, nvs, bounds, n_chips, cap_s)
-        if overlap_ok:
-            # ppermute rounds + group k-way merges as runs arrive
-            def recv(bflat, counts, cap):
-                acc, glens = _overlap_receive_groups(
-                    bflat.reshape(n_chips, cap), counts, n_chips, cap,
-                    tile_rows, fanin, ngroups=2)
-                total = jnp.sum(glens)
-                stride_g = (n_chips // 2) * (cap // LANES)
-                merged, _, _ = mw.multiway_merge(acc, None, glens, stride_g,
-                                                 2, tile_rows)
-                return merged, total
+        rs, ss = _sort_local(rk[0], sk[0])
+        mr, ms, ts, ov = _exchange_and_merge(
+            rs, ss, nvr[0], nvs[0], n_chips, cap_r, cap_s, axes, schedule,
+            hier)
+        return _count_owned(mr, ms, ts).reshape(1), ov.reshape(1)
 
-            mr2, tr = recv(brk, rc, cap_r)
-            ms2, ts = recv(bsk, sc, cap_s)
-        else:
-            grk = _exchange(brk, n_chips, cap_r, schedule, hier)
-            gsk = _exchange(bsk, n_chips, cap_s, schedule, hier)
-            grc = _exchange(rc, n_chips, 1, None, hier) if hier else \
-                jax.lax.all_to_all(rc, AXIS, 0, 0, tiled=True)
-            gsc = _exchange(sc, n_chips, 1, None, hier) if hier else \
-                jax.lax.all_to_all(sc, AXIS, 0, 0, tiled=True)
-            # phase 3: k-way merge of received runs
-            if remote_pull == "emulate":
-                mr2, tr, vr = _merge_received_gated(
-                    grk, grc, n_chips, cap_r, tile_rows, pull_rate, interp)
-                ms2, ts, vs = _merge_received_gated(
-                    gsk, gsc, n_chips, cap_s, tile_rows, pull_rate, interp)
-                gate_viol = (vr + vs).reshape(1)
-            else:
-                mr2, tr = _merge_received(grk, grc, n_chips, cap_r,
-                                          tile_rows, fanin, use_pallas)
-                ms2, ts = _merge_received(gsk, gsc, n_chips, cap_s,
-                                          tile_rows, fanin, use_pallas)
-        # phase 4: fused count over the owned key range (limbs recombined
-        # host-side in int64)
-        stats = mergejoin.merge_join_count_fused(
-            mr2, ms2, tr, ts, tile_rows, interpret=interp)
-        if remote_pull == "emulate":
-            return (stats.reshape(1, 3), (ovr + ovs).reshape(1),
-                    gate_viol)
-        return stats.reshape(1, 3), (ovr + ovs).reshape(1)
-
-    n_out = 3 if remote_pull == "emulate" else 2
-    return jax.jit(shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(spec,) * 4,
-        out_specs=(spec,) * n_out,
-        check_vma=False,  # pallas_call outputs carry no vma annotations
-    ))  # noqa: E501  (jax.shard_map, jax>=0.8)
+    return _smap(mesh, flat_spec(mesh), shard_fn, 4, 2)
 
 
 def dist_mway_join_count(rkeys, skeys, n_r: int, n_s: int,
                          mesh: Optional[Mesh] = None, slack: float = 2.0,
-                         block_rows: int = 256, tile_rows: int = 128,
-                         fanin: int = 16,
-                         use_pallas: Optional[bool] = None,
                          numa_strategy: Optional[str] = None,
-                         pre_sharded: bool = False,
-                         overlap: bool = False,
-                         remote_pull: Optional[str] = None,
-                         pull_rate: int = 1):
-    """Distributed m-way equi-join match count over a chip mesh.
+                         pre_sharded: bool = False):
+    """Distributed m-way equi-join match count over a device mesh.
 
-    Returns (count, overflow) host ints; overflow must be 0 (raise slack).
-    ``use_pallas=None`` auto-selects: Pallas kernels on TPU, XLA baseline
-    elsewhere (the CPU-mesh dryrun path).
+    Returns (count, overflow) host ints; overflow must be 0 (it is retried
+    with doubled slack up to 16x).
 
     A 2-D ('host','chip') mesh (mesh.make_mesh2d) switches the exchange to
-    the hierarchical two-stage form: all_to_all over ICI within each host,
-    then the DCN host tier (with the NEXT/RING/RANDOM schedule applied to
-    hosts) — the multi-host skeleton of BASELINE's ≥2-host scaling target.
+    the hierarchical two-stage form (with the NEXT/RING/RANDOM schedule
+    applied to hosts).
 
     ``pre_sharded``: rkeys/skeys are already (n_chips, shard) device
     arrays laid out with this mesh's sharding (the workload-A scale tier,
-    parallel.scale — 1.6B-tuple relations never exist on the host or on
-    any single chip); sizes must then divide evenly by n_chips.
-
-    ``overlap=True`` replaces the fused all_to_all with ppermute rounds
-    whose arriving runs k-way-merge in groups while later rounds are in
-    flight (the reference's merge-through-remote-reads,
-    sortmergejoin_multiway.c:494-518), at the cost of one extra k-way
-    pass (groups → final).  Requires a flat mesh, the Pallas pipeline,
-    and a power-of-two chip count >= 4; falls back LOUDLY otherwise.
-
-    ``remote_pull="emulate"`` routes phase 3 through the CHUNK-GATED
-    receiver merge (remote_fifo.chunk_gated_merge): the received runs
-    are consumed as if they arrived chunk-by-chunk per the push
-    schedule (``pull_rate`` merge rounds per push round) — the
-    executable form of the remote-pull readmerge
-    (avx_multiwaymerge.c:605-728).  Raises on a gating violation.
-    Requires the Pallas pipeline, a flat mesh, no overlap.
+    parallel.scale); sizes must then divide evenly by n_chips.
     """
-    import sys
-
-    if fanin < 2 or fanin & (fanin - 1):
-        raise ValueError(
-            f"fanin must be a power of two >= 2, got {fanin} (the k-way "
-            "merge kernel's group math requires it)")
     mesh = mesh or make_mesh()
-    if use_pallas is None:
-        use_pallas = _mesh_platform(mesh) == "tpu"
-    # pallas kernels interpret off-TPU regardless of pipeline choice
-    interp = _mesh_platform(mesh) != "tpu"
-    n_chips = int(np.prod(list(mesh.shape.values())))
-    hier = host_shape(mesh) if is_2d(mesh) else None
-    # power-of-two required: the group k-way merges pick fanin
-    # min(16, per_group) and multiway_merge asserts pow2 fanin with
-    # fanin-divisible run counts — an even-but-non-pow2 mesh (6, 10, 12
-    # chips) would crash at trace time instead of falling back
-    overlap_ok = (overlap and use_pallas and hier is None
-                  and n_chips >= 4
-                  and (n_chips & (n_chips - 1)) == 0)
-    if overlap and not overlap_ok:
-        print("[WARN ] dist m-way overlap=True requires the Pallas "
-              "pipeline, a flat mesh, and a power-of-two chip count >= 4 "
-              f"(use_pallas={use_pallas}, n_chips={n_chips}, "
-              f"mesh_axes={mesh.axis_names}); running the bulk "
-              "all_to_all path", file=sys.stderr)
-    if remote_pull is not None:
-        if remote_pull != "emulate":
-            raise ValueError(
-                "remote_pull='dma' needs multi-chip TPU hardware "
-                "(SMJ_REMOTE_DMA; see parallel/remote_fifo.py STATUS) — "
-                "only 'emulate' is runnable here")
-        if overlap_ok or hier is not None or not use_pallas:
-            print("[WARN ] remote_pull='emulate' requires the Pallas "
-                  "pipeline on a flat mesh without overlap; running the "
-                  "bulk path", file=sys.stderr)
-            remote_pull = None
-    if (overlap_ok and numa_strategy is not None
-            and numa_strategy != NumaStrategy.NEXT):
-        # flag honesty: the overlap path's ppermute rounds are inherently
-        # sequential-offset (round r receives from chip me-r) — a RING/
-        # RANDOM schedule cannot apply, so say so instead of mislabeling
-        # the measurement
-        print(f"[WARN ] overlap=True ignores numa_strategy={numa_strategy}"
-              " (ppermute rounds are sequential by construction)",
-              file=sys.stderr)
-    spec = flat_spec(mesh)
-    schedule = None
-    if hier is not None:
-        # hierarchical mesh: the shuffle knob schedules the DCN host tier
-        # (within-host ICI runs as one fused all_to_all); RING at region
-        # granularity degenerates to NEXT there, RANDOM stays meaningful
-        if numa_strategy is not None:
-            schedule = shuffle_order(numa_strategy, hier[0], 1).tolist()
-    elif numa_strategy is not None and numa_strategy != NumaStrategy.NEXT:
-        # RING strides by the mesh's real host granularity (the reference
-        # derives threads-per-region from libnuma, numa_shuffle.c:80)
-        schedule = shuffle_order(numa_strategy, n_chips,
-                                 chips_per_host_of(mesh)).tolist()
-    elif numa_strategy == NumaStrategy.NEXT:
-        schedule = list(range(n_chips))
-    shard_r = -(-n_r // n_chips)
-    shard_s = -(-n_s // n_chips)
-    tile_elems = tile_rows * LANES
-    cap_r = ex.bucket_cap(shard_r, n_chips, slack, tile_elems)
-    cap_s = ex.bucket_cap(shard_s, n_chips, slack, tile_elems)
-
-    nv_r = exchange_valid_counts(n_r, shard_r, n_chips)
-    nv_s = exchange_valid_counts(n_s, shard_s, n_chips)
-    sharded = NamedSharding(mesh, spec)
-    if pre_sharded:
-        assert rkeys.shape == (n_chips, shard_r), rkeys.shape
-        assert skeys.shape == (n_chips, shard_s), skeys.shape
-        rk_dev, sk_dev = rkeys, skeys
-    else:
-        rk = ex.pad_column(rkeys[:n_r], shard_r * n_chips, KEY_POS_INF)
-        sk = ex.pad_column(skeys[:n_s], shard_s * n_chips, KEY_POS_INF)
-        rk_dev = jax.device_put(rk.reshape(n_chips, shard_r), sharded)
-        sk_dev = jax.device_put(sk.reshape(n_chips, shard_s), sharded)
-
-    fn = _count_fn(mesh, n_chips, cap_r, cap_s, block_rows, tile_rows,
-                   fanin, use_pallas, overlap_ok,
-                   tuple(schedule) if schedule is not None else None,
-                   hier, interp, remote_pull, pull_rate,
-                   cache.prefetch_env_key())
-    with sort_ops.force_interpret(interp):
-        out = fn(
-            rk_dev, sk_dev,
-            jax.device_put(jnp.asarray(nv_r), sharded),
-            jax.device_put(jnp.asarray(nv_s), sharded),
-        )
-    if remote_pull == "emulate":
-        stats, overflow, gate_viol = out
-        if int(np.asarray(gate_viol).sum()):
-            raise RuntimeError(
-                "chunk-gated merge read past a delivered prefix — the "
-                "remote-pull gating arithmetic regressed "
-                "(remote_fifo._leaf_gate)")
-    else:
-        stats, overflow = out
-    stats = np.asarray(stats, dtype=np.int64)
-    if int(stats[:, 2].sum()):
-        raise mergejoin.CountLimbOverflow(
-            "per-segment cntR*cntS >= 2^29 on some chip of the "
-            "distributed m-way count")
-    count = int(((stats[:, 0] << 30) + stats[:, 1]).sum())
+    plan = _Plan(rkeys, skeys, n_r, n_s, mesh, slack, numa_strategy,
+                 pre_sharded)
+    counts, overflow = _count_fn(*plan.key)(plan.rk, plan.sk, plan.nvr,
+                                            plan.nvs)
     ov = int(np.asarray(overflow).sum())
     if ov > 0 and slack < 16.0:
         # extreme skew overflowed a bucket: retry with doubled capacity
         # (the reference's fixed RELATION_PADDING has no such safety net)
         return dist_mway_join_count(rkeys, skeys, n_r, n_s, mesh, slack * 2,
-                  block_rows, tile_rows, fanin, use_pallas, numa_strategy,
-                  pre_sharded, overlap, remote_pull, pull_rate)
-    return count, ov
+                                    numa_strategy, pre_sharded)
+    return int(np.asarray(counts).sum()), ov
 
 
-@functools.lru_cache(maxsize=2)
-def _phased_fns(mesh: Mesh, n_chips: int, cap_r: int, cap_s: int,
-                block_rows: int, tile_rows: int, fanin: int,
-                use_pallas: bool, schedule, hier, interp: bool,
-                env: tuple = ()):
+@functools.lru_cache(maxsize=4)
+def _phased_fns(mesh: Mesh, n_chips: int, cap_r: int, cap_s: int, schedule,
+                hier):
     """Cached jitted programs for the three phase dispatches of
-    :func:`dist_mway_join_phased` — rebuilding them per call re-traced
-    all three shard_map programs every invocation (and the overflow
-    retry re-traced them again), landing compile time inside the
-    reported phase columns."""
+    :func:`dist_mway_join_phased`."""
     axes = flat_axes(mesh)
     spec = flat_spec(mesh)
-    sched = list(schedule) if schedule is not None else None
 
     def sort_fn(rk, sk):
-        rk, sk = rk[0], sk[0]
-        r2 = _local_sorted_2d(rk, rk.shape[0], block_rows, tile_rows, fanin,
-                              use_pallas)
-        s2 = _local_sorted_2d(sk, sk.shape[0], block_rows, tile_rows, fanin,
-                              use_pallas)
-        return r2[None], s2[None]
+        rs, ss = _sort_local(rk[0], sk[0])
+        return rs[None], ss[None]
 
-    def exmerge_fn(r2, s2, nvr, nvs):
-        r2, s2 = r2[0], s2[0]
-        nvr, nvs = nvr[0], nvs[0]
-        bounds = _equidepth_bounds(r2, s2, nvr, nvs, n_chips, axes)
-        brk, rc, ovr = _slice_buckets(r2, nvr, bounds, n_chips, cap_r)
-        bsk, sc, ovs = _slice_buckets(s2, nvs, bounds, n_chips, cap_s)
-        grk = _exchange(brk, n_chips, cap_r, sched, hier)
-        gsk = _exchange(bsk, n_chips, cap_s, sched, hier)
-        grc = _exchange(rc, n_chips, 1, None, hier) if hier else \
-            jax.lax.all_to_all(rc, AXIS, 0, 0, tiled=True)
-        gsc = _exchange(sc, n_chips, 1, None, hier) if hier else \
-            jax.lax.all_to_all(sc, AXIS, 0, 0, tiled=True)
-        mr2, tr = _merge_received(grk, grc, n_chips, cap_r, tile_rows,
-                                  fanin, use_pallas)
-        ms2, ts = _merge_received(gsk, gsc, n_chips, cap_s, tile_rows,
-                                  fanin, use_pallas)
-        return (mr2[None], ms2[None], tr.reshape(1), ts.reshape(1),
-                (ovr + ovs).reshape(1))
+    def exmerge_fn(rs, ss, nvr, nvs):
+        mr, ms, ts, ov = _exchange_and_merge(
+            rs[0], ss[0], nvr[0], nvs[0], n_chips, cap_r, cap_s, axes,
+            schedule, hier)
+        return mr[None], ms[None], ts.reshape(1), ov.reshape(1)
 
-    def count_fn(mr2, ms2, tr, ts):
-        stats = mergejoin.merge_join_count_fused(
-            mr2[0], ms2[0], tr[0], ts[0], tile_rows, interpret=interp)
-        return stats.reshape(1, 3)
+    def count_fn(mr, ms, ts):
+        return _count_owned(mr[0], ms[0], ts[0]).reshape(1)
 
-    def smap(f, n_in, n_out):
-        return jax.jit(shard_map(
-            f, mesh=mesh, in_specs=(spec,) * n_in,
-            out_specs=tuple([spec] * n_out) if n_out > 1 else spec,
-            check_vma=False))
-
-    return smap(sort_fn, 2, 2), smap(exmerge_fn, 4, 5), smap(count_fn, 4, 1)
+    return (_smap(mesh, spec, sort_fn, 2, 2),
+            _smap(mesh, spec, exmerge_fn, 4, 4),
+            _smap(mesh, spec, count_fn, 3, 1))
 
 
 def dist_mway_join_phased(rkeys, skeys, n_r: int, n_s: int,
                           mesh: Optional[Mesh] = None, slack: float = 2.0,
-                          block_rows: int = 256, tile_rows: int = 128,
-                          fanin: int = 16,
-                          use_pallas: Optional[bool] = None,
                           numa_strategy: Optional[str] = None,
                           pre_sharded: bool = False):
     """Distributed m-way count with PER-PHASE timing: three separately
-    dispatched shard_map programs (local sort | exchange + k-way merge |
-    fused count) with a device sync between each, so multi-chip runs
-    report the reference's SORT / MERGE1 / MJOIN record columns
-    (joincommon.c:175-196) instead of one opaque total.
+    dispatched shard_map programs (local sort | exchange + merge | count),
+    each waited for, so multi-card runs report the reference's SORT /
+    MERGE1 / MJOIN record columns (joincommon.c:175-196).
 
     Returns ``(count, overflow, phases)`` where phases maps
-    sort/merge1/mergejoin/total to seconds.  The fused single-dispatch
-    path (:func:`dist_mway_join_count`) stays the throughput surface —
-    the phase syncs cost two extra dispatch round-trips.
-
-    ``pre_sharded``: rkeys/skeys are already (n_chips, shard) device
-    arrays laid out with this mesh's sharding (the workload-A scale
-    tier) — sizes must divide evenly by n_chips.
+    sort/merge1/mergejoin/total to seconds.  :func:`dist_mway_join_count`
+    is the same work in one dispatch.
     """
-    import time as _time
-
     mesh = mesh or make_mesh()
-    if use_pallas is None:
-        use_pallas = _mesh_platform(mesh) == "tpu"
-    interp = _mesh_platform(mesh) != "tpu"
-    n_chips = int(np.prod(list(mesh.shape.values())))
-    hier = host_shape(mesh) if is_2d(mesh) else None
-    axes = flat_axes(mesh)
-    spec = flat_spec(mesh)
-    schedule = None
-    if hier is not None:
-        if numa_strategy is not None:
-            schedule = shuffle_order(numa_strategy, hier[0], 1).tolist()
-    elif numa_strategy is not None and numa_strategy != NumaStrategy.NEXT:
-        schedule = shuffle_order(numa_strategy, n_chips,
-                                 chips_per_host_of(mesh)).tolist()
-    shard_r = -(-n_r // n_chips)
-    shard_s = -(-n_s // n_chips)
-    tile_elems = tile_rows * LANES
-    cap_r = ex.bucket_cap(shard_r, n_chips, slack, tile_elems)
-    cap_s = ex.bucket_cap(shard_s, n_chips, slack, tile_elems)
-    nv_r = exchange_valid_counts(n_r, shard_r, n_chips)
-    nv_s = exchange_valid_counts(n_s, shard_s, n_chips)
-    sharded = NamedSharding(mesh, spec)
-
-    if pre_sharded:
-        assert rkeys.shape == (n_chips, shard_r), rkeys.shape
-        assert skeys.shape == (n_chips, shard_s), skeys.shape
-        rk_dev, sk_dev = rkeys, skeys
-    else:
-        rk_dev = jax.device_put(
-            ex.pad_column(rkeys[:n_r], shard_r * n_chips,
-                          KEY_POS_INF).reshape(n_chips, shard_r), sharded)
-        sk_dev = jax.device_put(
-            ex.pad_column(skeys[:n_s], shard_s * n_chips,
-                          KEY_POS_INF).reshape(n_chips, shard_s), sharded)
-    nvr_dev = jax.device_put(jnp.asarray(nv_r), sharded)
-    nvs_dev = jax.device_put(jnp.asarray(nv_s), sharded)
-
-    sort_p, exmerge_p, count_p = _phased_fns(
-        mesh, n_chips, cap_r, cap_s, block_rows, tile_rows, fanin,
-        use_pallas, tuple(schedule) if schedule is not None else None,
-        hier, interp, cache.prefetch_env_key())
-
-    def sync(x):
-        for leaf in jax.tree_util.tree_leaves(x):
-            float(jnp.sum(leaf.reshape(-1)[:1]))
-
+    plan = _Plan(rkeys, skeys, n_r, n_s, mesh, slack, numa_strategy,
+                 pre_sharded)
+    sort_p, exmerge_p, count_p = _phased_fns(*plan.key)
     phases = {}
-    with sort_ops.force_interpret(interp):
-        t0 = _time.perf_counter()
-        r2, s2 = sort_p(rk_dev, sk_dev)
-        sync((r2, s2))
-        phases["sort"] = _time.perf_counter() - t0
-        t1 = _time.perf_counter()
-        mr2, ms2, tr, ts, ov = exmerge_p(r2, s2, nvr_dev, nvs_dev)
-        sync((mr2, ms2))
-        phases["merge1"] = _time.perf_counter() - t1
-        t2 = _time.perf_counter()
-        stats = count_p(mr2, ms2, tr, ts)
-        sync(stats)
-        phases["mergejoin"] = _time.perf_counter() - t2
+    t0 = time.perf_counter()
+    rs, ss = jax.block_until_ready(sort_p(plan.rk, plan.sk))
+    phases["sort"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    mr, ms, ts, overflow = jax.block_until_ready(
+        exmerge_p(rs, ss, plan.nvr, plan.nvs))
+    phases["merge1"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    counts = jax.block_until_ready(count_p(mr, ms, ts))
+    phases["mergejoin"] = time.perf_counter() - t2
     phases["total"] = phases["sort"] + phases["merge1"] + phases["mergejoin"]
-    stats = np.asarray(stats, dtype=np.int64)
-    if int(stats[:, 2].sum()):
-        raise mergejoin.CountLimbOverflow(
-            "per-segment cntR*cntS >= 2^29 on some chip of the "
-            "distributed m-way count")
-    count = int(((stats[:, 0] << 30) + stats[:, 1]).sum())
-    ov = int(np.asarray(ov).sum())
+    ov = int(np.asarray(overflow).sum())
     if ov > 0 and slack < 16.0:
         return dist_mway_join_phased(rkeys, skeys, n_r, n_s, mesh, slack * 2,
-                                     block_rows, tile_rows, fanin,
-                                     use_pallas, numa_strategy, pre_sharded)
-    return count, ov, phases
+                                     numa_strategy, pre_sharded)
+    return int(np.asarray(counts).sum()), ov, phases
+

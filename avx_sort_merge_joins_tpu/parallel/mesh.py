@@ -1,10 +1,10 @@
 """Device-mesh construction and exchange-scheduling strategies.
 
-The TPU-native replacement for the reference's CPU/NUMA topology layer
-(reference: src/util/cpu_mapping.c — logical→physical thread maps, NUMA
-region queries) and its NUMA shuffle strategies
-(reference: src/util/numa_shuffle.c:55-85).  Threads become mesh devices;
-"NUMA region" becomes the host a chip belongs to; the shuffle order becomes
+The replacement for the reference's CPU/NUMA topology layer (reference:
+src/util/cpu_mapping.c — logical→physical thread maps, NUMA region
+queries) and its NUMA shuffle strategies (reference:
+src/util/numa_shuffle.c:55-85).  Threads become mesh devices; "NUMA
+region" becomes the host a device belongs to; the shuffle order becomes
 the schedule of collective-permute rounds of the sorted-run exchange.
 """
 
@@ -58,8 +58,8 @@ def make_mesh(n_devices: Optional[int] = None, devices=None,
 def make_mesh2d(n_hosts: int, chips_per_host: int, devices=None) -> Mesh:
     """2-D ('host', 'chip') mesh — the hierarchical topology the reference
     derives from libnuma (regions × threads-per-region,
-    cpu_mapping.c:281-316).  Collectives over the 'chip' axis ride ICI
-    within a host; collectives over 'host' cross the DCN tier.  The flat
+    cpu_mapping.c:281-316).  Collectives over the 'chip' axis stay within
+    a host; collectives over 'host' cross hosts.  The flat
     device rank of (h, c) is h*chips_per_host + c, matching the 1-D mesh's
     order so shard layouts are interchangeable."""
     if devices is None:

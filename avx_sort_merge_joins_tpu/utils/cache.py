@@ -1,56 +1,38 @@
-"""Persistent XLA/Mosaic compilation cache wiring.
+"""Persistent XLA compilation cache wiring.
 
 The reference binary compiles once at build time; here the analogous cost
-is the Mosaic compile of the big unrolled sort kernels (30-240 s cold).
-Caching compiled executables next to the repo makes repeated process
-invocations — the grid scripts' usage pattern (tput-scalability.sh runs
-the driver once per configuration) — start in seconds, so the [RECORD]
-phase timings measure execution rather than compilation.
+is XLA's compile of each jitted join program.  Caching compiled
+executables lets repeated process invocations — the grid scripts' usage
+pattern (tput-scalability.sh runs the driver once per configuration) —
+skip it, so the [RECORD] phase timings measure execution rather than
+compilation.
+
+Where the cache lives: ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX
+reads it itself, and no other directory is configured in code), otherwise
+the fixed ``<checkout>/.jax_cache`` — a fixed path, because the path is
+part of the cache's key.
 """
 
 from __future__ import annotations
 
 import os
-import sys
 
-_DEFAULT_DIR = os.path.join(
+DEFAULT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     ".jax_cache")
 
 
-def prefetch_env_key() -> tuple:
-    """Snapshot of the trace-time perf knobs (SMJ_COUNT_PREFETCH,
-    SMJ_LEAF_PREFETCH).
-
-    The kernels read these env vars while TRACING; any lru/jit cache
-    around a traced pipeline must include this snapshot in its key, or an
-    in-process toggle (the A/B scripts' usage) silently reuses the other
-    variant's executable and mislabels the measurement."""
-    return (os.environ.get("SMJ_COUNT_PREFETCH", "1"),
-            os.environ.get("SMJ_LEAF_PREFETCH", "1"),
-            os.environ.get("SMJ_COUNT2", "0"),
-            os.environ.get("SMJ_COUNT64_TILE", "256"))
+def cache_dir() -> str:
+    """The directory compiled programs are cached in."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
 
 
 def enable_compile_cache() -> None:
-    """Point JAX at the persistent on-disk compilation cache.
+    """Point JAX at the persistent on-disk compilation cache.  CPU
+    programs recompile in seconds and are not cached."""
+    import jax
 
-    ``SMJ_JAX_CACHE`` overrides the location; ``SMJ_COMPILE_CACHE=0``
-    disables entirely.  Only compilations slower than 5 s are persisted
-    (the small XLA programs recompile faster than they deserialize).
-    """
-    if os.environ.get("SMJ_COMPILE_CACHE", "1") != "1":
+    if jax.default_backend() == "cpu":
         return
-    try:
-        import jax
-
-        if jax.default_backend() == "cpu":
-            # the cache exists for the minutes-long Mosaic TPU compiles;
-            # CPU programs recompile in seconds and the serialization
-            # hooks add an untested variable to the CPU test path
-            return
-        cache_dir = os.environ.get("SMJ_JAX_CACHE", _DEFAULT_DIR)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception as e:  # the cache is an optimization, never required
-        print(f"[WARN ] compilation cache unavailable: {e}", file=sys.stderr)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)

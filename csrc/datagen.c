@@ -1,4 +1,4 @@
-/* Native data-generation kernels for the TPU sort-merge-join engine.
+/* Native data-generation kernels for the sort-merge-join engine.
  *
  * The reference generates workloads with glibc rand() driven Knuth shuffles
  * (reference: src/datagen/generator.c) — inherently sequential, and far too

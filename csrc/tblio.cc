@@ -1,4 +1,4 @@
-// Fast .tbl table IO — native runtime component of the TPU engine.
+// Fast .tbl table IO — native runtime component of the engine.
 //
 // The reference persists relations as "key payload\n" text rows
 // (reference: src/datagen/generator.c:200-213 write_relation, enabled by
@@ -41,7 +41,7 @@ extern "C" {
 
 // Write n "key payload" rows to path (mode "wb" truncates, "ab" appends —
 // the append form backs the STREAMING persist of distributed materialize:
-// per-chip output chunks flush sequentially so no full join output ever
+// per-card output chunks flush sequentially so no full join output ever
 // sits in host memory, reference: src/datagen/generator.c:200-213).
 static int tbl_write_mode(const char* path, const int32_t* keys,
                           const int32_t* payloads, int64_t n, int nthreads,

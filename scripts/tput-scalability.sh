@@ -1,45 +1,36 @@
 #!/bin/bash
-# Thread(chip)-scaling experiment — the tput-scalability.sh analog
+# Thread(device)-scaling experiment — the tput-scalability.sh analog
 # (reference: scripts/tput-scalability.sh: algos x {64..1} threads x reps,
-#  AVX and scalar, record format
-#  "ALGO NTHREADS RUNNO PARTCYC SORTCYC MERGE1CYC MERGERESTCYC MJOINCYC
-#   NUMTUP USECS TPUT", :27-38 and :47-60 for the scalar sweep).
-# Chips replace threads; cycles are reported as microseconds; every config
-# runs twice — Pallas kernels and the scalar (XLA lax.sort) baseline —
-# mirroring the reference's AVX vs scalar double sweep.  [RECORD] rows on
-# stderr are grepped into OUT so rows are comparable column-for-column.
+#  record format "ALGO NTHREADS RUNNO PARTCYC SORTCYC MERGE1CYC
+#  MERGERESTCYC MJOINCYC NUMTUP USECS TPUT", :27-38).
+# Devices replace threads and cycles are reported as microseconds.  The
+# reference's second, scalar sweep (:47-60) has no counterpart: every path
+# here is the one plain sort and count.  [RECORD] rows on stderr are
+# grepped into OUT so rows are comparable column-for-column.  One process
+# runs at a time, so each card has one JAX process.
 set -u
 # run from anywhere: put the repo root on PYTHONPATH
 export PYTHONPATH="$(cd "$(dirname "${BASH_SOURCE[0]}")/.." && pwd):${PYTHONPATH:-}"
 NR=${NR:-134217728}
 NS=${NS:-$NR}
 REPS=${REPS:-3}
-CHIPS=${CHIPS:-"1"}       # e.g. "8 4 2 1" on a pod slice
+DEVICES=${DEVICES:-"1"}   # e.g. "4 2 1" on a four-GPU host
 ALGOS=${ALGOS:-"m-way m-pass mpsm"}
 LOG=${LOG:-tput-scalability.log}
 OUT=${OUT:-tput-scalability.txt}
 
-run_one() {  # algo chips rep extra-flags...
-  local algo=$1 n=$2 rep=$3; shift 3
-  local tag=$*
-  echo "# $algo chips=$n rep=$rep ${tag:-pallas}" >> "$LOG"
-  # capture stderr synchronously to a temp file, then append sequentially:
-  # concurrent process substitutions interleave $LOG lines and bash's
-  # `wait` does not cover them, which could drop the final [RECORD] row
-  local errtmp
-  errtmp=$(mktemp)
-  python -m avx_sort_merge_joins_tpu -a "$algo" -n "$n" \
-    -r "$NR" -s "$NS" "$@" >> "$LOG" 2> "$errtmp"
-  cat "$errtmp" >> "$LOG"
-  grep -E '^\[RECORD\]' "$errtmp" | sed "s/\$/ ${tag:-pallas}/" >> "$OUT"
-  rm -f "$errtmp"
-}
-
 for algo in $ALGOS; do
-  for n in $CHIPS; do
+  for n in $DEVICES; do
     for rep in $(seq 1 "$REPS"); do
-      run_one "$algo" "$n" "$rep"                       # Pallas kernels
-      run_one "$algo" "$n" "$rep" --scalarsort --scalarmerge  # scalar sweep
+      echo "# $algo devices=$n rep=$rep" >> "$LOG"
+      # capture stderr to a temp file, then append: the [RECORD] row must
+      # not interleave with other lines of the log
+      errtmp=$(mktemp)
+      python -m avx_sort_merge_joins_tpu -a "$algo" -n "$n" \
+        -r "$NR" -s "$NS" >> "$LOG" 2> "$errtmp"
+      cat "$errtmp" >> "$LOG"
+      grep -E '^\[RECORD\]' "$errtmp" >> "$OUT"
+      rm -f "$errtmp"
     done
   done
 done

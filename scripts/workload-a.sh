@@ -1,22 +1,17 @@
 #!/usr/bin/env bash
-# Workload A — BASELINE config #5: 1.6B x 1.6B m-way join on an 8-chip
-# v5e slice (reference: scripts/tput-scalability.sh:15-16,27-38).
+# Workload A — BASELINE config #5: 1.6B x 1.6B m-way join over several
+# devices (reference: scripts/tput-scalability.sh:15-16,27-38).
 #
 # The CLI auto-routes sizes >= SMJ_SHARDED_GEN_MIN (default 500M) with
 # -n > 1 through the scale tier: sharded ON-DEVICE generation (no host
 # array ever holds the relations) -> pre-sharded distributed m-way
-# (local Pallas sort -> equi-depth splitters -> ICI exchange -> k-way
-# FIFO-tree merge -> fused zero-write count) -> Results = |S| assert.
-# Per-chip HBM peak at 1.6B/8 chips is ~6.5 GB of 16 GB (PLAN's budget
-# table) — nothing must stream.
+# (local sort -> equi-depth splitters -> all_to_all -> re-sort -> count)
+# -> Results = |S| assert.
 #
-# THE literal run (the day an 8-chip slice is attached):
-#   scripts/workload-a.sh
-# Parameterized:
-#   scripts/workload-a.sh --devices 8 --ntuples 1600000000 [--skew 0.75]
-# CI-scale validation on the 8-virtual-chip CPU mesh (same entry point,
-# same code path — tests/test_cli.py::test_workload_a_runbook_entry):
-#   SMJ_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+#   scripts/workload-a.sh --devices 4 --ntuples 1600000000 [--skew 0.75]
+# CPU-scale rehearsal on 8 virtual CPU devices (same entry point, same
+# code path — tests/test_cli.py::test_workload_a_runbook_entry):
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
 #     scripts/workload-a.sh --devices 8 --ntuples 8000000 --scale-min 1000000
 set -u
 DEVICES=8
@@ -45,4 +40,4 @@ if [[ "$out" != *"Results = $NTUPLES"* ]]; then
   echo "[workload-a] FAIL: expected 'Results = $NTUPLES'" >&2
   exit 1
 fi
-echo "[workload-a] PASS: count == |S| == $NTUPLES over $DEVICES chips"
+echo "[workload-a] PASS: count == |S| == $NTUPLES over $DEVICES devices"

@@ -1,41 +1,5 @@
-"""Smoke tests for the bench-binary analogs (tiny sizes; interpret mode)."""
-
-from avx_sort_merge_joins_tpu.bench import (mergebench, partitioningbench,
-                                            sortbench, tputbench)
-
-
-def test_sortbench_smoke(capsys):
-    assert sortbench.main(["0.0625", "keysonly"]) == 0
-    out = capsys.readouterr().out
-    assert len(out.split()) == 3  # "N usecs Mt/s" record
-
-
-def test_partitioningbench_smoke(capsys):
-    assert partitioningbench.main(["65536", "hist", "4"]) == 0
-
-
-def test_mergebench_smoke(capsys):
-    assert mergebench.main(["0.03125", "--variant", "fifo2"]) == 0
-
-
-def test_tputbench_numa_smoke(capsys):
-    assert tputbench.main(["--mode", "numa", "-n", "8192",
-                           "-S", "RANDOM", "--reps", "1"]) == 0
-    cap = capsys.readouterr()
-    # memcpy (all_to_all) AND read-only aggregation rows — both halves of
-    # the reference numabench (tputbench.c:665-1171)
-    assert "ALL-TO-ALL" in cap.err and "AGGREGATION" in cap.err
-    rows = [ln for ln in cap.out.splitlines() if ln.strip()]
-    assert len(rows) == 1 and len(rows[0].split()) == 4
-
-
-def test_tputbench_mpsm_smoke(capsys):
-    assert tputbench.main(["--mode", "mpsm", "-n", "8192",
-                           "--nchunks", "1", "2", "--reps", "1"]) == 0
-    cap = capsys.readouterr()
-    rows = [ln for ln in cap.out.splitlines() if ln.strip()]
-    assert len(rows) == 2  # one record row per nchunks point
-    assert all(len(r.split()) == 6 for r in rows)
+"""Smoke tests for the bench harness that drives the distributed joins
+(tiny sizes, CPU mesh)."""
 
 
 def test_scalebench_smoke(capsys):
@@ -43,3 +7,12 @@ def test_scalebench_smoke(capsys):
     assert scalebench.main(["20000", "--devices", "1,2", "--reps", "1"]) == 0
     cap = capsys.readouterr()  # single snapshot: a second call is empty
     assert "efficiency" in cap.err or cap.out.count("\n") >= 2
+
+
+def test_scalebench_algorithms(capsys):
+    from avx_sort_merge_joins_tpu.bench import scalebench
+    for algo in ("m-pass", "mpsm"):
+        assert scalebench.main(["20000", "--devices", "2", "--reps", "1",
+                                "--algo", algo]) == 0
+    rows = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert [r.split()[0] for r in rows] == ["m-pass", "mpsm"]

@@ -1,5 +1,5 @@
 """Distributed join tests on the simulated 8-device CPU mesh — the
-multi-chip realization of the reference's cross-NUMA exchange
+multi-card realization of the reference's cross-NUMA exchange
 (threadrelchunks all-to-all, sortmergejoin_multiway.c:504-518)."""
 
 import numpy as np
@@ -30,8 +30,7 @@ def test_dist_join_count(rng):
 def test_dist_mway_join_count(rng):
     nR, nS = 20000, 30000
     rk, sk = _workload(rng, nR, nS)
-    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS,
-                                             use_pallas=False)
+    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -41,8 +40,7 @@ def test_dist_mway_nonuniform_sizes(rng):
     nR, nS = 10007, 14013
     rk = rng.integers(1, 3000, nR).astype(np.int32)
     sk = rng.integers(1, 3000, nS).astype(np.int32)
-    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS,
-                                             use_pallas=False, slack=3.0)
+    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS, slack=3.0)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -69,8 +67,7 @@ def test_dist_mway_zipf_skew(z, slack):
     S = create_relation_zipf(nS, nR, z)
     rk, _ = R.to_numpy()
     sk, _ = S.to_numpy()
-    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS,
-                                             use_pallas=False, slack=slack)
+    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS, slack=slack)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -78,12 +75,12 @@ def test_dist_mway_zipf_skew(z, slack):
 @pytest.mark.parametrize("strategy", ["NEXT", "RING", "RANDOM"])
 def test_dist_mway_permute_schedules(rng, strategy):
     """collective_permute-round exchange under each shuffle order
-    (numa_shuffle.c:55-85 -> ICI schedules)."""
+    (numa_shuffle.c:55-85 -> exchange schedules)."""
     nR, nS = 10_000, 15_000
     rk = rng.permutation(np.arange(1, nR + 1)).astype(np.int32)
     sk = rng.integers(1, nR + 1, nS).astype(np.int32)
     cnt, ov = dist_mway.dist_mway_join_count(
-        rk, sk, nR, nS, use_pallas=False, numa_strategy=strategy)
+        rk, sk, nR, nS, numa_strategy=strategy)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -96,8 +93,7 @@ def test_dist_mpsm_vs_oracle(rng):
     nR, nS = 12_000, 18_000
     rk = rng.integers(1, 4_000, nR).astype(np.int32)
     sk = rng.integers(1, 4_000, nS).astype(np.int32)
-    cnt, ov = dist_mpsm.dist_mpsm_join_count(rk, sk, nR, nS,
-                                             use_pallas=False, slack=3.0)
+    cnt, ov = dist_mpsm.dist_mpsm_join_count(rk, sk, nR, nS, slack=3.0)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -115,8 +111,7 @@ def test_dist_mpsm_zipf(rng):
     S = create_relation_zipf(nS, nR, 1.0)
     rk, _ = R.to_numpy()
     sk, _ = S.to_numpy()
-    cnt, ov = dist_mpsm.dist_mpsm_join_count(rk, sk, nR, nS,
-                                             use_pallas=False, slack=4.0)
+    cnt, ov = dist_mpsm.dist_mpsm_join_count(rk, sk, nR, nS, slack=4.0)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -128,8 +123,7 @@ def test_dist_mpass_vs_oracle(rng):
 
     nR, nS = 20000, 30000
     rk, sk = _workload(rng, nR, nS)
-    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS,
-                                               use_pallas=False)
+    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -140,8 +134,7 @@ def test_dist_mpass_ragged_nonunique(rng):
     nR, nS = 10007, 14013
     rk = rng.integers(1, 3000, nR).astype(np.int32)
     sk = rng.integers(1, 3000, nS).astype(np.int32)
-    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS,
-                                               use_pallas=False, slack=3.0)
+    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS, slack=3.0)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -159,45 +152,7 @@ def test_dist_mpass_zipf(rng):
     S = create_relation_zipf(nS, nR, 1.0)
     rk, _ = R.to_numpy()
     sk, _ = S.to_numpy()
-    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS,
-                                               use_pallas=False, slack=4.0)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-
-
-def test_dist_mpass_pallas_pipeline(rng):
-    """Pin the PALLAS distributed m-pass composition (interpret mode on the
-    CPU mesh): a regression in the b_asc merge kernel or the pass chaining
-    fails here, not in a manual check."""
-    from avx_sort_merge_joins_tpu.parallel import dist_mpass
-
-    nR, nS = 60_000, 90_000
-    rk, sk = _workload(rng, nR, nS)
-    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS,
-                                               use_pallas=True)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-
-
-def test_dist_mway_pallas_pipeline(rng):
-    """Pin the PALLAS distributed m-way composition (multiway_sort +
-    FIFO-tree merge + fused count, interpreted on the CPU mesh)."""
-    nR, nS = 60_000, 90_000
-    rk, sk = _workload(rng, nR, nS)
-    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS,
-                                             use_pallas=True)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-
-
-def test_dist_mpsm_pallas_pipeline(rng):
-    from avx_sort_merge_joins_tpu.parallel import dist_mpsm
-
-    nR, nS = 24_000, 36_000
-    rk = rng.integers(1, 8_000, nR).astype(np.int32)
-    sk = rng.integers(1, 8_000, nS).astype(np.int32)
-    cnt, ov = dist_mpsm.dist_mpsm_join_count(rk, sk, nR, nS,
-                                             use_pallas=True, slack=3.0)
+    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS, slack=4.0)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -225,8 +180,7 @@ def test_dist_tiny_relation_wide_mesh(rng):
     nR, nS = 5, 2000  # R occupies only the first chip's shard
     rk = rng.permutation(np.arange(1, nR + 1)).astype(np.int32)
     sk = rng.integers(1, nR + 1, nS).astype(np.int32)
-    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS,
-                                             use_pallas=False)
+    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -238,8 +192,7 @@ def test_dist_mway_heavy_hitter(rng):
     rk = rng.permutation(np.arange(1, nR + 1)).astype(np.int32)
     sk = np.where(rng.random(nS) < 0.9, 7,
                   rng.integers(1, nR + 1, nS)).astype(np.int32)
-    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS,
-                                             use_pallas=False)
+    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
@@ -251,7 +204,7 @@ def test_workload_a_scale_tier_scaled_down():
     from avx_sort_merge_joins_tpu.parallel import scale
 
     nR = nS = 1 << 20
-    cnt, ov = scale.workload_a_join_count(nR, nS, use_pallas=False)
+    cnt, ov = scale.workload_a_join_count(nR, nS)
     assert ov == 0
     assert cnt == nS
 
@@ -270,118 +223,6 @@ def test_workload_a_sharded_generation_unique():
     assert sorted(keys.tolist()) == list(range(1, n + 1))
     s = np.asarray(sk).reshape(-1)
     assert s.min() >= 1 and s.max() <= n
-
-
-def test_dist_mpass_overlap_exact(rng):
-    """Exchange/merge overlap: ppermute rounds with merge-as-they-arrive
-    must count exactly like the all_to_all path
-    (mpass_firstnumamerge_phase's pull-while-merge, SURVEY §5)."""
-    from avx_sort_merge_joins_tpu.parallel import dist_mpass
-
-    nR, nS = 50_000, 70_000
-    rk, sk = _workload(rng, nR, nS)
-    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS,
-                                               use_pallas=True, overlap=True)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-
-
-def test_dist_mway_overlap_exact(rng):
-    """Exchange/merge overlap in the FLAGSHIP dist m-way: ppermute rounds
-    with group k-way merges as runs arrive (VERDICT r2 #4; the
-    merge-through-remote-reads of sortmergejoin_multiway.c:494-518)."""
-    nR, nS = 50_000, 70_000
-    rk, sk = _workload(rng, nR, nS)
-    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS,
-                                             use_pallas=True, overlap=True)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-
-
-def test_dist_mway_overlap_ragged(rng):
-    nR, nS = 10007, 14013
-    rk = rng.integers(1, 3000, nR).astype(np.int32)
-    sk = rng.integers(1, 3000, nS).astype(np.int32)
-    cnt, ov = dist_mway.dist_mway_join_count(
-        rk, sk, nR, nS, use_pallas=True, overlap=True, slack=3.0)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-
-
-def test_dist_mway_overlap_zipf(rng):
-    from avx_sort_merge_joins_tpu.datagen import (create_relation_zipf,
-                                                  seed_generator)
-
-    nR, nS = 20_000, 30_000
-    rk, _ = _workload(rng, nR, nS)
-    seed_generator(47)
-    S = create_relation_zipf(nS, nR, 1.0)
-    sk, _ = S.to_numpy()
-    cnt, ov = dist_mway.dist_mway_join_count(
-        rk, sk, nR, nS, use_pallas=True, overlap=True, slack=4.0)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-
-
-def test_dist_mway_overlap_falls_back_loudly(rng, capsys):
-    """overlap on a 2-D mesh must warn and run the bulk path."""
-    from avx_sort_merge_joins_tpu.parallel.mesh import make_mesh2d
-
-    nR, nS = 16_000, 16_000
-    rk, sk = _workload(rng, nR, nS)
-    mesh = make_mesh2d(2, 4)
-    cnt, ov = dist_mway.dist_mway_join_count(
-        rk, sk, nR, nS, mesh=mesh, use_pallas=True, overlap=True)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-    assert "overlap=True requires" in capsys.readouterr().err
-
-
-def test_dist_mway_overlap_nonpow2_falls_back_loudly(rng, capsys):
-    """overlap=True on an even-but-non-power-of-two mesh (6 chips) must
-    warn and run the bulk path: the overlap group merges pick fanin
-    min(16, per_group) and the k-way kernel requires pow2 fanin, so 6
-    chips (per_group=3) would crash at trace time without the gate."""
-    from avx_sort_merge_joins_tpu.parallel import dist_mway
-    from avx_sort_merge_joins_tpu.parallel.mesh import make_mesh
-
-    nR, nS = 24_000, 36_000
-    rk, sk = _workload(rng, nR, nS)
-    mesh = make_mesh(6)
-    cnt, ov = dist_mway.dist_mway_join_count(
-        rk, sk, nR, nS, mesh=mesh, use_pallas=True, overlap=True)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-    assert "overlap=True requires" in capsys.readouterr().err
-
-
-def test_dist_mpass_overlap_nonpow2_falls_back_loudly(rng, capsys):
-    """overlap=True on a non-power-of-two mesh (6 chips) must warn and run
-    the all_to_all path (non-pow2 even meshes would crash the overlap
-    path's halving levels at trace time), still counting exactly."""
-    from avx_sort_merge_joins_tpu.parallel import dist_mpass
-    from avx_sort_merge_joins_tpu.parallel.mesh import make_mesh
-
-    nR, nS = 24_000, 36_000
-    rk, sk = _workload(rng, nR, nS)
-    mesh = make_mesh(6)
-    cnt, ov = dist_mpass.dist_mpass_join_count(
-        rk, sk, nR, nS, mesh=mesh, use_pallas=True, overlap=True)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-    assert "overlap=True requires" in capsys.readouterr().err
-
-
-def test_dist_mpass_overlap_ragged(rng):
-    from avx_sort_merge_joins_tpu.parallel import dist_mpass
-
-    nR, nS = 10007, 14013
-    rk = rng.integers(1, 3000, nR).astype(np.int32)
-    sk = rng.integers(1, 3000, nS).astype(np.int32)
-    cnt, ov = dist_mpass.dist_mpass_join_count(
-        rk, sk, nR, nS, use_pallas=True, overlap=True, slack=3.0)
-    assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
 
 
 def test_mesh_topology_ring():
@@ -426,7 +267,7 @@ def test_dist_nonpow2_mesh(rng, ndev):
     for fn in (dist_mway.dist_mway_join_count,
                dist_mpass.dist_mpass_join_count,
                dist_mpsm.dist_mpsm_join_count):
-        cnt, ov = fn(rk, sk, nR, nS, mesh, use_pallas=False)
+        cnt, ov = fn(rk, sk, nR, nS, mesh)
         assert ov == 0 and cnt == exp, fn.__name__
 
 
@@ -435,8 +276,7 @@ def test_dist_mway_phased(rng):
     timings for the record row (joincommon.c:175-196 columns)."""
     nR, nS = 20000, 30000
     rk, sk = _workload(rng, nR, nS)
-    cnt, ov, phases = dist_mway.dist_mway_join_phased(rk, sk, nR, nS,
-                                                      use_pallas=False)
+    cnt, ov, phases = dist_mway.dist_mway_join_phased(rk, sk, nR, nS)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
     assert set(phases) == {"sort", "merge1", "mergejoin", "total"}
@@ -450,7 +290,7 @@ def test_workload_a_skewed():
     from avx_sort_merge_joins_tpu.parallel import scale
 
     nR = nS = 1 << 20
-    cnt, ov = scale.workload_a_join_count(nR, nS, use_pallas=False,
+    cnt, ov = scale.workload_a_join_count(nR, nS,
                                           skew=1.0, slack=4.0)
     assert ov == 0
     assert cnt == nS
@@ -462,22 +302,22 @@ def test_workload_a_skewed():
 
 
 def test_dist_join_count_wrap_detection(capsys):
-    """A per-chip match count past 2^31 (heavy-hitter key: 50K x 50K dups
-    = 2.5e9 matches on one chip) must come back exact through the loud
-    wide-path fallback — the raw XLA int32 count wraps silently."""
+    """A per-card match count past 2^31 (heavy-hitter key: 50K x 50K dups
+    = 2.5e9 matches on one card) comes back exact from the device's int64
+    count, with no host recount."""
     from avx_sort_merge_joins_tpu.parallel import dist_join
 
     n = 50_000
     rk = np.full(n, 7, np.int32)
     sk = np.full(n, 7, np.int32)
     # slack covers the single-destination pile-up (one key range owns
-    # ALL tuples), isolating the wrap-detection path from bucket overflow
+    # ALL tuples), isolating the count from bucket overflow
     cnt, ov = dist_join.dist_join_count(
         rk, np.arange(n, dtype=np.int32), sk, np.arange(n, dtype=np.int32),
         n, n, slack=80.0)
     assert ov == 0
     assert cnt == n * n  # 2.5e9 > 2^31: wrapped int32 would be wrong
-    assert "wide path" in capsys.readouterr().err
+    assert "wide path" not in capsys.readouterr().err
 
 
 def test_dist_flat_only_guards(rng):
@@ -496,15 +336,64 @@ def test_dist_flat_only_guards(rng):
     with pytest.raises(ValueError, match="flat mesh"):
         dist_mpsm.dist_mpsm_join_count(rk, sk, nR, nS, mesh=mesh2)
 
+def _count_dist_join(rk, sk, nR, nS, mesh):
+    return dist_join.dist_join_count(rk, np.arange(nR, dtype=np.int32), sk,
+                                     np.arange(nS, dtype=np.int32), nR, nS,
+                                     mesh)
 
-def test_dist_mway_nonpow2_fanin_rejected(rng):
-    """A non-power-of-two fanin must fail loudly at entry instead of a
-    bare assert deep inside the k-way merge trace."""
-    import pytest
 
-    from avx_sort_merge_joins_tpu.parallel import dist_mway
+def _count_phased(rk, sk, nR, nS, mesh):
+    cnt, ov, _ = dist_mway.dist_mway_join_phased(rk, sk, nR, nS, mesh)
+    return cnt, ov
 
-    nR, nS = 8192, 8192
-    rk, sk = _workload(rng, nR, nS)
-    with pytest.raises(ValueError, match="power of two"):
-        dist_mway.dist_mway_join_count(rk, sk, nR, nS, fanin=6)
+
+def _count_mpass(rk, sk, nR, nS, mesh):
+    from avx_sort_merge_joins_tpu.parallel import dist_mpass
+    return dist_mpass.dist_mpass_join_count(rk, sk, nR, nS, mesh)
+
+
+def _count_mpsm(rk, sk, nR, nS, mesh):
+    from avx_sort_merge_joins_tpu.parallel import dist_mpsm
+    return dist_mpsm.dist_mpsm_join_count(rk, sk, nR, nS, mesh)
+
+
+def _count_materialize(rk, sk, nR, nS, mesh):
+    from avx_sort_merge_joins_tpu.parallel import dist_materialize
+    ks, _, cnt, ov = dist_materialize.dist_join_materialize(
+        rk, np.arange(nR, dtype=np.int32), sk,
+        np.arange(nS, dtype=np.int32), nR, nS, mesh)
+    assert len(ks) == cnt
+    return cnt, ov
+
+
+_DIST = {"dist_join": _count_dist_join,
+         "mway": dist_mway.dist_mway_join_count,
+         "mway_phased": _count_phased,
+         "mpass": _count_mpass,
+         "mpsm": _count_mpsm,
+         "materialize": _count_materialize}
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4, 8])
+@pytest.mark.parametrize("algo", list(_DIST))
+def test_dist_mesh_sizes(rng, algo, ndev):
+    """Every distributed algorithm on 1/2/4/8-device meshes, nonunique
+    keys with a ragged final shard, exact against numpy."""
+    nR, nS = 6007, 9011
+    rk = rng.integers(1, 2000, nR).astype(np.int32)
+    sk = rng.integers(1, 2000, nS).astype(np.int32)
+    cnt, ov = _DIST[algo](rk, sk, nR, nS, make_mesh(ndev))
+    assert ov == 0
+    assert cnt == merge_join_count_numpy(rk, sk)
+
+
+@pytest.mark.parametrize("algo", ["mway", "mway_phased", "mpsm"])
+def test_dist_past_2_31(algo):
+    """A hot key on both sides past 2^31 matches comes back exact from
+    every distributed count (int64 per-card counts)."""
+    n = 50_000
+    rk = np.full(n, 7, np.int32)
+    sk = np.full(n, 7, np.int32)
+    cnt, ov = _DIST[algo](rk, sk, n, n, make_mesh(4))
+    assert ov == 0
+    assert cnt == n * n

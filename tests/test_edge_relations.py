@@ -1,6 +1,6 @@
 """Degenerate relation sizes: empty and single-tuple inputs must count
 exactly through every algorithm (the reference's scalar loops handle
-these trivially; padded static-shape kernels must too)."""
+these trivially; static-shape device programs must too)."""
 
 import numpy as np
 import pytest
@@ -17,8 +17,7 @@ def test_degenerate_sizes(nR, nS):
     R = Relation.from_numpy(np.arange(1, nR + 1, dtype=np.int32))
     S = Relation.from_numpy(np.ones(nS, np.int32))
     exp = nS if (nR >= 1 and nS) else 0
-    assert sortmergejoin_multiway(R, S, block_rows=128,
-                                  tile_rows=128).totalresults == exp
-    assert sortmergejoin_multipass(R, S, block_rows=128,
-                                   tile_rows=128).totalresults == exp
+    assert sortmergejoin_multiway(R, S).totalresults == exp
+    assert sortmergejoin_multipass(R, S).totalresults == exp
     assert sortmergejoin_mpsm(R, S).totalresults == exp
+    assert sortmergejoin_mpsm(R, S, nchunks=3).totalresults == exp

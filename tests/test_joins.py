@@ -20,7 +20,7 @@ def test_mpass_pk_fk_equal_sizes():
     seed_generator(42)
     R = parallel_create_relation(16384, 16384, 2)
     S = create_relation_fk(16384, 16384)
-    res = sortmergejoin_multipass(R, S, block_rows=8, tile_rows=8)
+    res = sortmergejoin_multipass(R, S)
     assert res.totalresults == 16384
 
 
@@ -28,7 +28,7 @@ def test_mpass_pk_fk_larger_s():
     seed_generator(7)
     R = parallel_create_relation(6000, 6000, 4)
     S = create_relation_fk(20000, 6000)
-    res = sortmergejoin_multipass(R, S, block_rows=8, tile_rows=8)
+    res = sortmergejoin_multipass(R, S)
     assert res.totalresults == 20000
 
 
@@ -36,7 +36,7 @@ def test_mpass_zipf_skew():
     seed_generator(9)
     R = parallel_create_relation(5000, 5000, 1)
     S = create_relation_zipf(12000, 5000, 0.75)
-    res = sortmergejoin_multipass(R, S, block_rows=8, tile_rows=8)
+    res = sortmergejoin_multipass(R, S)
     # R is a full permutation of 1..5000 and zipf keys are in [1,5000]
     assert res.totalresults == 12000
 
@@ -45,7 +45,7 @@ def test_mpass_nonunique_oracle():
     seed_generator(11)
     R = create_relation_nonunique(8000, 2000)
     S = create_relation_nonunique(12000, 2000)
-    res = sortmergejoin_multipass(R, S, block_rows=8, tile_rows=8)
+    res = sortmergejoin_multipass(R, S)
     rk, _ = R.to_numpy()
     sk, _ = S.to_numpy()
     assert res.totalresults == MJ.merge_join_count_numpy(rk, sk)
@@ -55,7 +55,7 @@ def test_mpass_phase_stats_present():
     seed_generator(1)
     R = parallel_create_relation(4096, 4096, 1)
     S = create_relation_fk(4096, 4096)
-    res = sortmergejoin_multipass(R, S, block_rows=8, tile_rows=8)
+    res = sortmergejoin_multipass(R, S)
     assert "total" in res.phases and res.throughput > 0
 
 
@@ -65,7 +65,7 @@ def test_mpass_phase_stats_present():
 # (the reference's merge16_varlen tail handling,
 # sortmergejoin_multipass.c:137-292 / avxsort_core.h:486-501)
 
-from avx_sort_merge_joins_tpu.types import JoinConfig, Relation
+from avx_sort_merge_joins_tpu.types import Relation
 
 
 def _rel(keys, rng):
@@ -82,8 +82,7 @@ def test_mpass_property_sizes_dups(rng, nR, nS, domain):
     crossing block boundaries; 100_000 = mostly-unique)."""
     rk = rng.integers(1, domain + 1, nR).astype(np.int32)
     sk = rng.integers(1, domain + 1, nS).astype(np.int32)
-    res = sortmergejoin_multipass(_rel(rk, rng), _rel(sk, rng),
-                                  block_rows=8, tile_rows=8)
+    res = sortmergejoin_multipass(_rel(rk, rng), _rel(sk, rng))
     assert res.totalresults == MJ.merge_join_count_numpy(rk, sk)
 
 
@@ -93,39 +92,41 @@ def test_mpass_negative_keys(rng):
     nR, nS = 20_000, 15_000
     rk = rng.integers(-(2**28), 2**28, nR).astype(np.int32)
     sk = rng.integers(-(2**28), 2**28, nS).astype(np.int32)
-    res = sortmergejoin_multipass(_rel(rk, rng), _rel(sk, rng),
-                                  block_rows=8, tile_rows=8)
+    res = sortmergejoin_multipass(_rel(rk, rng), _rel(sk, rng))
     assert res.totalresults == MJ.merge_join_count_numpy(rk, sk)
 
 
-@pytest.mark.parametrize("ssort,smerge", [(True, False), (False, True),
-                                          (True, True)])
-def test_mpass_scalar_flags(rng, ssort, smerge):
-    """--scalarsort/--scalarmerge must actually swap kernels on the
-    single-chip m-pass model (previously silently ignored) and stay
-    exact on nonunique keys (main.c:727-728's kernel-swap contract)."""
-    nR, nS = 9_000, 11_000
-    rk = rng.integers(1, 2_000, nR).astype(np.int32)
-    sk = rng.integers(1, 2_000, nS).astype(np.int32)
-    cfg = JoinConfig(scalar_sort=ssort, scalar_merge=smerge)
-    res = sortmergejoin_multipass(_rel(rk, rng), _rel(sk, rng), cfg,
-                                  block_rows=8, tile_rows=8)
-    assert res.totalresults == MJ.merge_join_count_numpy(rk, sk)
-    assert "sortmerge" in res.phases
+_SCALAR_FLAGS = [["--scalarsort"], ["--scalarmerge"],
+                 ["--scalarsort", "--scalarmerge"]]
 
 
-@pytest.mark.parametrize("ssort,smerge", [(True, False), (False, True),
-                                          (True, True)])
-def test_mpsm_scalar_flags(rng, ssort, smerge):
-    """Same kernel-swap contract for single-chip mpsm — the scalar path
-    must preserve the chunked scan-all-S-runs shape and stay exact."""
-    from avx_sort_merge_joins_tpu.models.mpsm import sortmergejoin_mpsm
+@pytest.mark.parametrize("flags", _SCALAR_FLAGS)
+def test_mpass_scalar_flags(capsys, flags):
+    """--scalarsort/--scalarmerge stay accepted for flag parity with the
+    reference (main.c:727-728) and select nothing: every path is the
+    plain sort and count, and it stays exact on nonunique keys."""
+    from avx_sort_merge_joins_tpu import cli
 
-    nR, nS = 7_000, 10_001
-    rk = rng.integers(1, 1_500, nR).astype(np.int32)
-    sk = rng.integers(1, 1_500, nS).astype(np.int32)
-    cfg = JoinConfig(scalar_sort=ssort, scalar_merge=smerge)
-    res = sortmergejoin_mpsm(_rel(rk, rng), _rel(sk, rng), cfg, nchunks=3,
-                             block_rows=8, tile_rows=8)
-    assert res.totalresults == MJ.merge_join_count_numpy(rk, sk)
-    assert "sort" in res.phases and "mergejoin" in res.phases
+    argv = ["-a", "m-pass", "-r", "9000", "-s", "11000", "--non-unique",
+            "-x", "3", "-y", "4"]
+    assert cli.main(argv + flags) == 0
+    cap = capsys.readouterr()
+    assert "has no effect" in cap.err
+    R, S = cli.make_relations(cli.build_parser().parse_args(argv))
+    want = MJ.merge_join_count_numpy(R.to_numpy()[0], S.to_numpy()[0])
+    assert f"Results = {want}" in cap.out
+
+
+@pytest.mark.parametrize("flags", _SCALAR_FLAGS)
+def test_mpsm_scalar_flags(capsys, flags):
+    """Same flag-parity contract for single-card mpsm with S chunks."""
+    from avx_sort_merge_joins_tpu import cli
+
+    argv = ["-a", "mpsm", "--nchunks", "3", "-r", "7000", "-s", "10001",
+            "--non-unique", "-x", "5", "-y", "6"]
+    assert cli.main(argv + flags) == 0
+    cap = capsys.readouterr()
+    assert "has no effect" in cap.err
+    R, S = cli.make_relations(cli.build_parser().parse_args(argv))
+    want = MJ.merge_join_count_numpy(R.to_numpy()[0], S.to_numpy()[0])
+    assert f"Results = {want}" in cap.out

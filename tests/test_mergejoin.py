@@ -1,23 +1,20 @@
-"""Merge-join tests: match counts validated against the NumPy oracle
+"""Merge-join count tests: match counts validated against the NumPy oracle
 sum_k cntR(k)*cntS(k) — the semantics of the reference's duplicate-aware
 merge_join (reference: src/joins/joincommon.c:239-312)."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from avx_sort_merge_joins_tpu.ops import mergejoin as MJ
-from avx_sort_merge_joins_tpu.ops import sort as S
+from avx_sort_merge_joins_tpu.types import KEY_SENTINEL
 
 
-def _count(rk, sk, tile_rows=8):
-    nR, nS = len(rk), len(sk)
-    rks, _ = S.sort(jnp.asarray(rk), jnp.zeros(nR, jnp.int32), nR,
-                    block_rows=8, tile_rows=tile_rows)
-    sks, _ = S.sort_descending(jnp.asarray(sk), jnp.zeros(nS, jnp.int32), nS,
-                               block_rows=8, tile_rows=tile_rows)
-    stats = MJ.merge_join_count(rks, sks, nR, nS, tile_rows)
-    return MJ.finish_count(stats, tile_rows)
+def _count(rk, sk, n_s=None):
+    rks = jnp.sort(jnp.asarray(rk))
+    sks = jnp.sort(jnp.asarray(sk))
+    return int(jax.jit(MJ.count_sorted)(rks, sks, n_s))
 
 
 @pytest.mark.parametrize("nR,nS,lo,hi", [
@@ -47,102 +44,78 @@ def test_count_no_matches(rng):
 
 
 def test_count_all_equal():
-    rk = np.full(300, 42, np.int32)
-    sk = np.full(500, 42, np.int32)
-    assert _count(rk, sk) == 300 * 500
+    assert _count(np.full(300, 42, np.int32),
+                  np.full(500, 42, np.int32)) == 300 * 500
 
 
-def test_xla_baseline_counter(rng):
-    rk = np.sort(rng.integers(0, 100, 1000)).astype(np.int32)
-    sk = np.sort(rng.integers(0, 100, 1500)).astype(np.int32)
-    got = int(MJ.merge_join_count_xla(jnp.asarray(rk), jnp.asarray(sk), 1000, 1500))
+@pytest.mark.parametrize("nR,nS", [(0, 5), (5, 0), (0, 0)])
+def test_count_empty_sides(nR, nS):
+    assert _count(np.ones(nR, np.int32), np.ones(nS, np.int32)) == 0
+
+
+@pytest.mark.parametrize("nR,nS", [(10, 50000), (50000, 10)])
+def test_count_lopsided(rng, nR, nS):
+    rk = rng.integers(0, 64, nR).astype(np.int32)
+    sk = rng.integers(0, 64, nS).astype(np.int32)
+    assert _count(rk, sk) == MJ.merge_join_count_numpy(rk, sk)
+
+
+def test_count_live_prefix(rng):
+    """Only the first n_s S keys count: S pad slots hold KEY_SENTINEL,
+    the same value as R's pads, and must not match them."""
+    rk = np.concatenate([rng.integers(0, 100, 900),
+                         np.full(100, KEY_SENTINEL)]).astype(np.int32)
+    live = rng.integers(0, 100, 700).astype(np.int32)
+    sk = np.concatenate([np.sort(live),
+                         np.full(300, KEY_SENTINEL, np.int32)])
+    got = int(jax.jit(MJ.count_sorted)(jnp.sort(jnp.asarray(rk)),
+                                       jnp.asarray(sk), jnp.int32(700)))
+    assert got == MJ.merge_join_count_numpy(rk[:900], live)
+
+
+def test_count_sentinel_pads_never_match(rng):
+    """R padded with KEY_SENTINEL at the end (the distributed layouts):
+    live S keys never reach the pads."""
+    rk = np.concatenate([rng.integers(-50, 50, 4000),
+                         np.full(1000, KEY_SENTINEL)]).astype(np.int32)
+    sk = rng.integers(-60, 60, 6000).astype(np.int32)
+    assert _count(rk, sk) == MJ.merge_join_count_numpy(rk[:4000], sk)
+
+
+def test_count_past_2_31():
+    """A hot key on both sides: 50K x 50K = 2.5e9 matches > 2^31 must come
+    back exact (int64 total, no host recount)."""
+    n = 50_000
+    got = _count(np.full(n, 7, np.int32), np.full(n, 7, np.int32))
+    assert got == n * n
+
+
+def test_count_int64_keys(rng):
+    """The same counts over genuine 64-bit keys (KEY_8B), traced with x64:
+    keys that differ only above bit 31 must not match."""
+    base = rng.integers(0, 1000, 3000).astype(np.int64)
+    rk = base + (rng.integers(0, 3, 3000).astype(np.int64) << 40)
+    sk = base[rng.integers(0, 3000, 5000)] + \
+        (rng.integers(0, 3, 5000).astype(np.int64) << 40)
+    with jax.enable_x64(True):
+        got = int(jax.jit(MJ.count_sorted)(jnp.sort(jnp.asarray(rk)),
+                                           jnp.sort(jnp.asarray(sk)), None))
     assert got == MJ.merge_join_count_numpy(rk, sk)
 
 
-def _fused_layout(keys_sorted, tile_rows):
-    """(rows,128) ascending layout with the fused kernel's spare rows."""
-    n = len(keys_sorted)
-    rows = -(-n // 128) + tile_rows + 8
-    kf = np.full(rows * 128, 2**31 - 1, np.int32)
-    kf[:n] = keys_sorted
-    return jnp.asarray(kf.reshape(rows, 128))
-
-
-def test_fused_count_limb_overflow_detected():
-    """Both-sides-hot key with cntR*cntS >= 2^29: the fused kernel must
-    raise the overflow flag (never return a silently wrapped count) —
-    the reference's scalar loops are exact for all inputs
-    (joincommon.c:260-305)."""
-    n = 1 << 15  # 2^15 * 2^15 = 2^30 matches on one key
-    rk = np.full(n, 7, np.int32)
-    sk = np.full(n, 7, np.int32)
-    stats = MJ.merge_join_count_fused(_fused_layout(rk, 128),
-                                      _fused_layout(sk, 128), n, n, 128)
-    with pytest.raises(MJ.CountLimbOverflow):
-        MJ.finish_count_fused(stats)
-
-
-def test_fused_count_below_limb_limit_exact():
-    """Just below the invariant: 2^14 * 2^14 = 2^28 < 2^29 stays exact and
-    unflagged."""
-    n = 1 << 14
-    rk = np.full(n, 7, np.int32)
-    sk = np.full(n, 7, np.int32)
-    stats = MJ.merge_join_count_fused(_fused_layout(rk, 128),
-                                      _fused_layout(sk, 128), n, n, 128)
-    assert MJ.finish_count_fused(stats) == n * n
+def test_count_result_is_int64():
+    out = jax.jit(MJ.count_sorted)(jnp.arange(10, dtype=jnp.int32),
+                                   jnp.arange(10, dtype=jnp.int32))
+    assert out.dtype == np.int64 and int(out) == 10
 
 
 def test_mway_model_overflow_fallback():
-    """The m-way model returns the exact count through the wide fallback
-    when the fused kernel overflows."""
+    """The m-way model counts a both-sides-hot key past 2^31 exactly on
+    the device (the old fused kernel needed a host recount here)."""
     from avx_sort_merge_joins_tpu.models.mway import sortmergejoin_multiway
     from avx_sort_merge_joins_tpu.types import Relation
 
-    n = 1 << 15
+    n = 1 << 16
     R = Relation.from_numpy(np.full(n, 7, np.int32))
     Sr = Relation.from_numpy(np.full(n, 7, np.int32))
-    res = sortmergejoin_multiway(R, Sr, block_rows=128, tile_rows=128)
-    assert res.totalresults == n * n
-
-
-def test_fused_count_tile_larger_than_layout_spare(rng):
-    """Count tile 256 over layouts built with only tile-128 spare (the
-    low-mwaybufsize m-way combination): the wrapper must pad the missing
-    spare rows — without it the end-clamped window DMA reads past the
-    VMEM scratch and merges garbage."""
-    n = 80000  # big enough that ensure_min_rows alone cannot mask the
-    # missing spare (live rows must exceed WIN - spare = 384)
-    rk = np.sort(rng.integers(1, 30000, n).astype(np.int32))
-    sk = np.sort(rng.integers(1, 30000, n).astype(np.int32))
-    expected = MJ.merge_join_count_numpy(rk, sk)
-    stats = MJ.merge_join_count_fused(_fused_layout(rk, 128),
-                                      _fused_layout(sk, 128), n, n, 256)
-    assert MJ.finish_count_fused(stats) == expected
-
-
-def test_fused64_count_tile_larger_than_layout_spare(rng):
-    """Same spare-vs-tile mismatch through the KEY_8B plane kernel: its
-    single-buffered window load derives the lane skip from the unclamped
-    cursor, so an engaged clamp misaligns whole rows unless the wrapper
-    guarantees the spare."""
-    from avx_sort_merge_joins_tpu.ops import join64
-
-    nR, nS = 20000, 30000
-    rk = rng.integers(1, 8000, nR).astype(np.int32)
-    sk = rng.integers(1, 8000, nS).astype(np.int32)
-    (rh, rl), (sh, sl) = (join64.split64(np.sort(rk.astype(np.int64))),
-                          join64.split64(np.sort(sk.astype(np.int64))))
-
-    def layout(plane, tile_rows):
-        m = len(plane)
-        rows = -(-m // 128) + tile_rows + 8
-        f = np.full(rows * 128, 2**31 - 1, np.int32)
-        f[:m] = plane
-        return jnp.asarray(f.reshape(rows, 128))
-
-    stats = MJ.merge_join_count_fused64(
-        layout(rh, 128), layout(rl, 128), layout(sh, 128), layout(sl, 128),
-        nR, nS, tile_rows=256)
-    assert MJ.finish_count_fused(stats) == MJ.merge_join_count_numpy(
-        np.sort(rk), np.sort(sk))
+    assert sortmergejoin_multiway(R, Sr).totalresults == n * n

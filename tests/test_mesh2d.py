@@ -1,9 +1,9 @@
 """2-D ('host','chip') mesh tests — the hierarchical topology tier
 (reference: src/util/cpu_mapping.c:281-316 regions × threads-per-region;
 numa_shuffle.c:80 region-strided RING).  The exchange runs in two stages:
-all_to_all over the ICI 'chip' axis within each host, then the DCN 'host'
-tier — validated bit-identical to the flat exchange and end-to-end exact
-through the distributed joins on a 2×4 virtual CPU mesh."""
+all_to_all over the 'chip' axis within each host, then the 'host' tier —
+validated bit-identical to the flat exchange and end-to-end exact through
+the distributed joins on a 2×4 virtual CPU mesh."""
 
 import jax
 import jax.numpy as jnp
@@ -63,7 +63,7 @@ def test_exchange_hier_matches_flat(rng, hc):
 
 
 def test_exchange_hier_host_schedule(rng):
-    """Permute-round DCN tier (RANDOM host schedule) delivers the same
+    """Permute-round host tier (RANDOM host schedule) delivers the same
     layout as the fused host all_to_all."""
     from avx_sort_merge_joins_tpu.parallel.mesh import shuffle_order
 
@@ -89,25 +89,24 @@ def test_exchange_hier_host_schedule(rng):
 
 def test_dist_mway_2d_mesh_exact(rng):
     """End-to-end distributed m-way on a 2×4 mesh with the hierarchical
-    exchange (Pallas pipeline pinned via use_pallas=True in interpret)."""
+    exchange."""
     nR, nS = 40_000, 60_000
     rk, sk = _workload(rng, nR, nS)
     mesh = make_mesh2d(2, 4)
-    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS, mesh=mesh,
-                                             use_pallas=True)
+    cnt, ov = dist_mway.dist_mway_join_count(rk, sk, nR, nS, mesh=mesh)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
 
 def test_dist_mway_2d_mesh_schedule_and_skew(rng):
-    """2-D mesh with a RANDOM DCN-tier schedule on a skewed nonunique
+    """2-D mesh with a RANDOM host-tier schedule on a skewed nonunique
     workload (splitters + hierarchy together)."""
     nR, nS = 10007, 14013
     rk = rng.integers(1, 2000, nR).astype(np.int32)
     sk = rng.integers(1, 2000, nS).astype(np.int32)
     mesh = make_mesh2d(2, 4)
     cnt, ov = dist_mway.dist_mway_join_count(
-        rk, sk, nR, nS, mesh=mesh, use_pallas=False, slack=3.0,
+        rk, sk, nR, nS, mesh=mesh, slack=3.0,
         numa_strategy=NumaStrategy.RANDOM)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
@@ -117,18 +116,20 @@ def test_dist_mpass_2d_mesh_exact(rng):
     nR, nS = 30_000, 45_000
     rk, sk = _workload(rng, nR, nS)
     mesh = make_mesh2d(2, 4)
-    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS, mesh=mesh,
-                                               use_pallas=True)
+    cnt, ov = dist_mpass.dist_mpass_join_count(rk, sk, nR, nS, mesh=mesh)
     assert ov == 0
     assert cnt == merge_join_count_numpy(rk, sk)
 
 
-def test_dist_mpass_2d_overlap_falls_back_loudly(rng, capsys):
-    nR, nS = 16_000, 16_000
-    rk, sk = _workload(rng, nR, nS)
-    mesh = make_mesh2d(2, 4)
-    cnt, ov = dist_mpass.dist_mpass_join_count(
-        rk, sk, nR, nS, mesh=mesh, use_pallas=True, overlap=True)
+def test_dist_materialize_2d_mesh_exact(rng):
+    """The payload-carrying exchange through the two-stage 2-D form."""
+    from avx_sort_merge_joins_tpu.parallel import dist_materialize
+
+    nR, nS = 6000, 9000
+    rk = rng.integers(0, 1500, nR).astype(np.int32)
+    sk = rng.integers(0, 2000, nS).astype(np.int32)
+    ks, _, cnt, ov = dist_materialize.dist_join_materialize(
+        rk, np.arange(nR, dtype=np.int32), sk, np.arange(nS, dtype=np.int32),
+        nR, nS, mesh=make_mesh2d(2, 4))
     assert ov == 0
-    assert cnt == merge_join_count_numpy(rk, sk)
-    assert "overlap=True requires" in capsys.readouterr().err
+    assert cnt == len(ks) == merge_join_count_numpy(rk, sk)

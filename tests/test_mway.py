@@ -31,15 +31,6 @@ def test_mway_nonunique(rng):
     assert res.totalresults == merge_join_count_numpy(rk, sk)
 
 
-@pytest.mark.parametrize("fanin", [2, 8])
-def test_mway_fanin_variants(rng, fanin):
-    nR = nS = 40_000
-    rk = rng.permutation(np.arange(1, nR + 1)).astype(np.int32)
-    sk = rng.permutation(np.arange(1, nS + 1)).astype(np.int32)
-    res = sortmergejoin_multiway(_rel(rk, rng), _rel(sk, rng), fanin=fanin)
-    assert res.totalresults == nS
-
-
 def test_mway_negative_keys(rng):
     """The fork's motivating bug: negative keys mis-sorted under double
     compare (reference: src/run.log:531-551).  Native int32 compares must
@@ -51,34 +42,23 @@ def test_mway_negative_keys(rng):
     assert res.totalresults == merge_join_count_numpy(rk, sk)
 
 
-def test_mway_count2_variant(rng, monkeypatch):
-    """SMJ_COUNT2=1 routes the count through merge_levels_2runs + the
-    4-way-select kernel (the round-4 fused-last-level A/B surface —
-    measured slower, kept as a documented knob; PLAN r4).  Must stay
-    EXACT on nonunique keys: sizes chosen so both compositions stop at
-    two runs with a ragged second run."""
-    nR, nS = 150_000, 90_000  # > 1 block (block 512 = 64K), non-pow2
-    rk = rng.integers(1, 9_000, nR).astype(np.int32)
-    sk = rng.integers(1, 9_000, nS).astype(np.int32)
-    want = merge_join_count_numpy(rk, sk)
-    monkeypatch.setenv("SMJ_COUNT2", "1")
-    res = sortmergejoin_multiway(_rel(rk, rng), _rel(sk, rng))
-    assert res.totalresults == want
-    monkeypatch.setenv("SMJ_COUNT2", "0")
-    res0 = sortmergejoin_multiway(_rel(rk, rng), _rel(sk, rng))
-    assert res0.totalresults == want
-
-
-def test_mway_prefetch_knobs_off(rng, monkeypatch):
-    """SMJ_COUNT_PREFETCH=0 / SMJ_LEAF_PREFETCH=0 select the
-    single-buffered kernel variants (the A/B foils of PLAN r3/r4) — they
-    must stay exact, not just the defaults.  One joint run covers the
-    leaf-window path (multiwaymerge) and the count-window path
-    (mergejoin) together."""
-    monkeypatch.setenv("SMJ_COUNT_PREFETCH", "0")
-    monkeypatch.setenv("SMJ_LEAF_PREFETCH", "0")
-    nR, nS = 140_000, 100_000
-    rk = rng.integers(1, 7_000, nR).astype(np.int32)
-    sk = rng.integers(1, 7_000, nS).astype(np.int32)
+@pytest.mark.parametrize("nR,nS", [(1, 1), (3, 1000), (1000, 3),
+                                   (4097, 8191)])
+def test_mway_sizes(rng, nR, nS):
+    """Tiny, lopsided and non-power-of-two sides."""
+    rk = rng.integers(1, 50, nR).astype(np.int32)
+    sk = rng.integers(1, 50, nS).astype(np.int32)
     res = sortmergejoin_multiway(_rel(rk, rng), _rel(sk, rng))
     assert res.totalresults == merge_join_count_numpy(rk, sk)
+
+
+@pytest.mark.parametrize("nchunks", [1, 2, 5])
+def test_mpsm_chunks_agree_with_mway(rng, nchunks):
+    """mpsm's independent S runs count exactly what one sorted S does."""
+    from avx_sort_merge_joins_tpu.models.mpsm import sortmergejoin_mpsm
+
+    rk = rng.integers(1, 3000, 20000).astype(np.int32)
+    sk = rng.integers(1, 3000, 30001).astype(np.int32)
+    res = sortmergejoin_mpsm(_rel(rk, rng), _rel(sk, rng), nchunks=nchunks)
+    assert res.totalresults == merge_join_count_numpy(rk, sk)
+    assert set(res.phases) == {"sort", "mergejoin", "total"}

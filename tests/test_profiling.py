@@ -1,7 +1,5 @@
 """Observability utilities (the rdtsc/PCM analogs)."""
 
-import numpy as np
-
 from avx_sort_merge_joins_tpu.utils import profiling
 
 
@@ -16,16 +14,23 @@ def test_phase_timer_report():
     assert "TUPLES-PER-SECOND" in rep
 
 
-def test_bytes_moved_roofline():
-    bm = profiling.BytesMoved()
-    bm.add("sort", profiling.BytesMoved.sort_bytes(1 << 20, passes=3,
-                                                   keys_only=True))
-    rep = bm.roofline_report({"sort": 0.001}, bandwidth_gbps=567.0)
-    assert "ROOFLINE" in rep and "sort" in rep
+def test_record_line_columns():
+    """The reference scripts' record row (tput-scalability.sh:28): phases
+    that are no separate work report 0."""
+    row = profiling.record_line("m-way", 1, 10, 20, 0,
+                                {"sort": 0.5, "mergejoin": 0.25,
+                                 "total": 1.0})
+    cols = row.split()
+    assert cols[:6] == ["[RECORD]", "m-way", "1", "10", "20", "0"]
+    # PART SORT MERGE1 MERGEREST MJOIN
+    assert cols[6:11] == ["0", "500000", "0", "0", "250000"]
+    assert cols[11:] == ["30", "1000000", "30"]
 
 
-def test_sync_returns_value():
+def test_trace_writes_profile(tmp_path):
+    """trace() brackets a jax.profiler trace (the PCM_start/stop analog)."""
     import jax.numpy as jnp
 
-    x = jnp.arange(8)
-    assert profiling.sync(x) is x
+    with profiling.trace(str(tmp_path)):
+        jnp.arange(8).sum().block_until_ready()
+    assert any(tmp_path.rglob("*.xplane.pb"))
